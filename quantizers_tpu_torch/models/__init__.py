@@ -1,0 +1,13 @@
+"""Model layer: the dense decoder-only transformer over QuantLinear dicts."""
+
+from .config import ModelSpec  # noqa: F401
+from .transformer import (  # noqa: F401
+    KVCache,
+    apply_layer,
+    embed,
+    forward,
+    fuse_for_decode,
+    init_params,
+    logits_head,
+    quantize_lm_head,
+)
