@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one CUDA card, end to end.
+"""Drive the PyTorch port's serving paths on one CUDA card, end to end.
 
     python3 chip_smoke.py
 
@@ -8,15 +8,26 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compile the CUDA kernels of ``quantizers_tpu_torch/csrc``;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes the serving path gives it, with timings beside the bound;
-4. serve: a Qwen3-4B-shaped W4A16 model at full width and depth (random
-   weights from a seeded generator), ``serving_layout(head_bits=8)``, an
-   8 x 128 prefill and 256 greedy decode steps, with the kernels' launch
-   counts checked; then the tied bf16 head layout;
-5. card against CPU: a 2-layer full-width model through the same converted
-   weights on both devices, prefill plus 16 teacher-forced decode steps;
-6. batcher: 12 requests through ``ContinuousBatcher`` at full width;
-7. one JSON line of per-kernel numbers, then the card's nvidia-smi line,
+   the shapes the serving paths give it, with timings beside the bound;
+4. serve, slice 1: a Qwen3-4B-shaped W4A16 model at full width and depth
+   (random weights from a seeded generator), ``serving_layout(head_bits=8)``,
+   an 8 x 128 prefill and 256 greedy decode steps, with the kernels'
+   launch counts checked; then the tied bf16 head layout;
+5. serve, slice 2, path A (the main path): Qwen3-30B-A3B at full width and
+   depth (48 layers) with NVFP4 experts and bf16 attention, laid out by
+   ``serving_layout(head_bits=8)`` (w8pc experts on the card), an 8 x 128
+   prefill, a greedy decode with exact per-step launch counts, a
+   teacher-forced timed decode with the distinct experts per layer and the
+   fraction of the bytes bound, and a profiled window; then 12 requests
+   through ``ContinuousBatcher`` on the same params;
+6. paths B and C at 8 layers: the packed and int8 expert layouts (slot
+   kernel at decode, NVFP4 matmul in a row prefill) and dense NVFP4
+   Qwen3-4B in both NVFP4 layouts, each with its launch counts checked;
+7. card against CPU: slice 1 and path A at 2 layers, full width, through
+   the same converted weights on both devices, prefill plus 15
+   teacher-forced decode steps (path A: router choices compared too);
+8. batcher, slice 1: 12 requests at full width;
+9. one JSON line of per-kernel numbers, then the card's nvidia-smi line,
    then the final ``{"ok": true, ...}`` line.
 
 Longer per-shape numbers go to ``chiprun_out/chip_smoke_detail.json``.
@@ -24,6 +35,7 @@ Longer per-shape numbers go to ``chiprun_out/chip_smoke_detail.json``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -49,13 +61,18 @@ BF16_FLOPS = 989e12
 
 #: tolerances of the kernel checks. The matmuls: a fraction of the plain
 #: output's largest |value|, 1e-2, about 2.5 bf16 ulps there (each side
-#: rounds once, from f32 sums taken in another order). Decode attention: a
+#: rounds once, from f32 sums taken in another order); the NVFP4 matmuls per
+#: output row. The slot FFNs: 1e-2 of each slot row's largest |value| (f32
+#: outputs; a, rounded to bf16 on both sides, may round the other way after
+#: f32 sums in another order, 2^-8 of one term). Decode attention: a
 #: fraction of each (row, KV head)'s own largest |value|, so that the long
 #: rows, whose values are small, are held as closely as the short ones; the
 #: kernel keeps its probabilities in f32 where the plain version rounds them
 #: to bf16 (at most 2^-9 of each term), which with the output's rounding
 #: stays under 1e-2, and the limit is twice that
-RTOL = {"w4_matmul": 1e-2, "w8_matmul": 1e-2, "decode_attention": 2e-2}
+RTOL = {"w4_matmul": 1e-2, "w8_matmul": 1e-2, "decode_attention": 2e-2,
+        "nvfp4_matmul": 1e-2, "nvfp4_i8_matmul": 1e-2, "moe_slot_ffn": 1e-2,
+        "moe_slot_gu_ffn": 1e-2}
 #: card against CPU, logits: f32 sums in other orders and cuBLAS for prefill
 #: move a few bf16 roundings of the activations over two layers. Largest
 #: |err| within 2e-2 of the largest |logit| (2.5 bf16 ulps there), and each
@@ -69,6 +86,15 @@ TIE_ULPS = 2
 
 def log(*a) -> None:
     print(*a, file=sys.stderr, flush=True)
+
+
+def expect(**nonzero) -> dict:
+    """Launch counts with every kernel at 0 but the ones named."""
+    from quantizers_tpu_torch.ops import kernels as K
+
+    want = {fn.__name__: 0 for fn in K.ALL_KERNELS}
+    want.update(nonzero)
+    return want
 
 
 def fail(msg: str) -> None:
@@ -110,6 +136,14 @@ def copies_for(nbytes: int) -> int:
     return max(1, min(16, math.ceil(160e6 / max(nbytes, 1))))
 
 
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the bf16 tensor rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -127,13 +161,13 @@ def w4_linear(gen, k: int, n: int, g: int = GROUP, random_scale: bool = False):
                        meta=(("k", k), ("n", n), ("group_size", g)))
 
 
-def w8_linear(gen, k: int, n: int, g=None):
+def w8_linear(gen, k: int, n: int, g=None, scale_dtype=torch.bfloat16):
     from quantizers_tpu_torch.ops.linear import QuantLinear
 
     dev = gen.device
     w = torch.randint(-127, 128, (k, n), dtype=torch.int8, device=dev, generator=gen)
     rows = k // g if g else 1
-    scale = (torch.rand((rows, n), device=dev, generator=gen) * 0.004 + 0.001).bfloat16()
+    scale = (torch.rand((rows, n), device=dev, generator=gen) * 0.004 + 0.001).to(scale_dtype)
     return QuantLinear(kind="w8", weight=w, scale=scale, meta=(("k", k), ("n", n), ("group_size", g)))
 
 
@@ -144,9 +178,10 @@ def matmul_bytes(lin, m: int) -> int:
     return m * k * 2 + payload + scales + m * n * 2
 
 
-def check_matmul(name, kernel, plain_fn, gen, k, n, m, g, timed: bool):
+def check_matmul(name, kernel, plain_fn, gen, k, n, m, g, timed: bool,
+                 scale_dtype=torch.bfloat16):
     lin = (w4_linear(gen, k, n, g, random_scale=True) if name == "w4_matmul"
-           else w8_linear(gen, k, n, g))
+           else w8_linear(gen, k, n, g, scale_dtype))
     x = torch.randn((m, k), device=gen.device, generator=gen).bfloat16()
     got = kernel(x, lin)
     ref = plain_fn(x, lin)
@@ -172,8 +207,7 @@ def check_matmul(name, kernel, plain_fn, gen, k, n, m, g, timed: bool):
     kernel.launches = before  # timing launches are not main-path launches
     row["plain_ms"] = cuda_ms(lambda: plain_fn(x, wsrc()), iters=5, warmup=1)
     row["library_ms"] = cuda_ms(lambda: torch.matmul(x, dsrc()))
-    row["bound_ms"] = max(nbytes / HBM_BYTES_PER_S, 2 * m * k * n / BF16_FLOPS) * 1e3
-    row["bound_by"] = "bytes" if nbytes / HBM_BYTES_PER_S >= 2 * m * k * n / BF16_FLOPS else "operations"
+    row.update(bound(nbytes, 2 * m * k * n))
     del wdense
     return row
 
@@ -256,15 +290,13 @@ def check_decode_attention(gen, timed: bool):
               + 2 * nk.numel() * 2  # new rows in
               + 2 * B * KV * 255 * hd * 2  # cached K and V read
               + 2 * nk.numel() * 2)  # new rows written
-    flops = 4 * B * KV * rep * n_pos * hd
-    row["bound_ms"] = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
-    row["bound_by"] = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations"
+    row.update(bound(nbytes, 4 * B * KV * rep * n_pos * hd))
     row["timed_at"] = "L=255 all rows"
     return row
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the served model
+# phase 4: the served model, slice 1
 # ---------------------------------------------------------------------------
 
 def build_params(spec, gen):
@@ -290,13 +322,14 @@ def build_params(spec, gen):
 
 
 def tensor_bytes(tree) -> int:
+    from quantizers_tpu_torch.models.moe import ExpertLinears
     from quantizers_tpu_torch.ops.linear import QuantLinear
 
     if isinstance(tree, dict):
         return sum(tensor_bytes(v) for v in tree.values())
     if isinstance(tree, list):
         return sum(tensor_bytes(v) for v in tree)
-    if isinstance(tree, QuantLinear):
+    if isinstance(tree, (QuantLinear, ExpertLinears)):
         return sum(tensor_bytes(t) for t in (tree.weight, tree.scale, tree.zero_point, tree.bias))
     if isinstance(tree, torch.Tensor):
         return tree.numel() * tree.element_size()
@@ -419,10 +452,10 @@ def serve_phase(gen, detail):
     counts = K.launch_counts()
     log(f"[serve] prefill {BATCH}x{PREFILL}: {t_prefill * 1e3:.1f} ms; launches {after_prefill}")
     log(f"[serve] decode {STEPS} steps: {t_decode:.3f} s; launches {counts}")
-    check(after_prefill == {"w4_matmul": 0, "w8_matmul": 0, "decode_attention": 0},
+    check(not any(after_prefill.values()),
           f"prefill at m={BATCH * PREFILL} must launch no kernel: {after_prefill}")
     L = spec.num_layers
-    want = {"w4_matmul": L * 4 * STEPS, "w8_matmul": STEPS, "decode_attention": L * STEPS}
+    want = expect(w4_matmul=L * 4 * STEPS, w8_matmul=STEPS, decode_attention=L * STEPS)
     check(counts == want, f"decode launch counts {counts} != {want}")
     check(toks.shape == (BATCH, STEPS) and bool(((toks >= 0) & (toks < spec.vocab_size)).all()),
           "decoded ids out of range")
@@ -472,7 +505,7 @@ def serve_phase(gen, detail):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: card against CPU through the same converted weights
+# phase 7: card against CPU through the same converted weights
 # ---------------------------------------------------------------------------
 
 def card_vs_cpu(detail, devices=("cuda", "cpu")):
@@ -557,7 +590,7 @@ def card_vs_cpu(detail, devices=("cuda", "cpu")):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: the batcher
+# phase 8: the batcher, slice 1
 # ---------------------------------------------------------------------------
 
 def batcher_phase(spec, raw, gen, detail):
@@ -582,10 +615,685 @@ def batcher_phase(spec, raw, gen, detail):
     for rid, n in reqs.items():
         check(len(res[rid]) == n, f"batcher: request {rid} has {len(res[rid])} != {n} tokens")
         check(all(0 <= t < spec.vocab_size for t in res[rid]), "batcher: id out of range")
-    check(all(v > 0 for v in counts.values()), f"batcher: a kernel never launched: {counts}")
+    check(all(counts[k] > 0 for k in ("w4_matmul", "w8_matmul", "decode_attention"))
+          and counts == expect(**{k: counts[k] for k in ("w4_matmul", "w8_matmul",
+                                                           "decode_attention")}),
+          f"batcher: a slice-1 kernel never launched, or another one did: {counts}")
     detail["batcher"] = {"requests": 12, "tokens": sum(reqs.values()), "seconds": dt,
                          "launches": counts}
     log(f"[batcher] {detail['batcher']}")
+
+
+# ---------------------------------------------------------------------------
+# slice 2: NVFP4 and MoE (phase 3's second half, phases 5-7)
+# ---------------------------------------------------------------------------
+
+#: Qwen3-30B-A3B geometry (the JAX package's benchmarks/bench_moe.py), tied
+#: embeddings, all 48 layers
+MOE_GEOMETRY = dict(vocab_size=151936, hidden_size=2048, num_layers=48, num_heads=32,
+                    num_kv_heads=4, head_dim=128, intermediate_size=6144, qk_norm=True,
+                    tie_word_embeddings=True, num_experts=128, num_experts_per_tok=8,
+                    moe_intermediate_size=768, norm_topk_prob=True, model_type="qwen3_moe")
+#: greedy steps with exact launch counts, then teacher-forced timed steps
+MOE_STEPS, MOE_TIMED_STEPS = 16, 64
+#: depth of paths B (packed and int8 experts) and C (dense NVFP4 Qwen3-4B)
+SIDE_LAYERS, SIDE_STEPS = 8, 8
+NVFP4_G = 16
+#: card against CPU, path A: a token's top-k experts may differ between the
+#: two devices only where the CPU's k-th and (k+1)-th router probabilities
+#: lie within this fraction of the k-th (the router's f32 logits come from
+#: bf16 activations that the two devices round apart by an ulp or so)
+ROUTE_GAP_RTOL = 2e-2
+
+
+def nvfp4_linear(gen, k: int, n: int, layout: str = "packed"):
+    """Random E2M1 codes with bf16 scales in [0.004, 0.012]; ``int8``: the
+    int8-doubled layout of the same weights."""
+    from quantizers_tpu_torch.ops.linear import QuantLinear, nvfp4_packed_to_i8
+
+    dev = gen.device
+    packed = torch.randint(0, 256, (k // 2, n), dtype=torch.uint8, device=dev, generator=gen)
+    scale = (torch.rand((k // NVFP4_G, n), device=dev, generator=gen) * 0.008 + 0.004).bfloat16()
+    if layout == "int8":
+        packed, scale = nvfp4_packed_to_i8(packed), (scale.float() * 0.5).bfloat16()
+    return QuantLinear(kind="nvfp4", weight=packed, scale=scale,
+                       meta=(("k", k), ("n", n), ("group_size", NVFP4_G)))
+
+
+def row_check(name: str, got, ref, label: str):
+    """Each output row against its own largest |value|; returns the worst
+    row's (err, tol)."""
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), f"{name} {label}: non-finite output")
+    errs = (got.float() - ref.float()).abs().amax(dim=1)
+    tols = RTOL[name] * ref.float().abs().amax(dim=1)
+    ratio = errs / tols
+    i = int(ratio.argmax())
+    err, tol = errs[i].item(), tols[i].item()
+    check(bool((ratio <= 1).all()), f"{name} {label}: row {i}: max |err| {err:.4g} > tol {tol:.4g}")
+    return err, tol
+
+
+def check_nvfp4(gen, k: int, n: int, m: int, layout: str, timed: bool) -> dict:
+    from quantizers_tpu_torch.ops import kernels as K
+
+    name = "nvfp4_i8_matmul" if layout == "int8" else "nvfp4_matmul"
+    wrapper = getattr(K, name)
+    lin = nvfp4_linear(gen, k, n, layout)
+    x = torch.randn((m, k), device=gen.device, generator=gen).bfloat16()
+    label = f"{m}x{k}x{n}"
+    got = wrapper(x, lin)
+    err, tol = row_check(name, got, K.nvfp4_matmul_plain(x, lin.weight, lin.scale, NVFP4_G), label)
+    check(torch.equal(wrapper(x, lin), got), f"{name} {label}: differs from run to run")
+    row = {"m": m, "k": k, "n": n, "max_abs_err": err, "tol": tol}
+    if not timed:
+        return row
+    nbytes = matmul_bytes(lin, m)
+    copies = [lin] + [dataclasses.replace(lin, weight=lin.weight.clone(), scale=lin.scale.clone())
+                      for _ in range(copies_for(nbytes) - 1)]
+    wsrc = rotating(copies)
+    dsrc = rotating([c.dequantize(torch.bfloat16) for c in copies[:2]])
+
+    def plain():
+        c = wsrc()
+        return K.nvfp4_matmul_plain(x, c.weight, c.scale, NVFP4_G)
+
+    before = wrapper.launches
+    row["ms"] = cuda_ms(lambda: wrapper(x, wsrc()))
+    wrapper.launches = before  # timing launches are not main-path launches
+    row["plain_ms"] = cuda_ms(plain, iters=5, warmup=1)
+    row["library_ms"] = cuda_ms(lambda: torch.matmul(x, dsrc()))
+    row.update(bound(nbytes, 2 * m * k * n))
+    return row
+
+
+def moe_stacks(gen, payload: str, E: int, D: int, Fe: int, damp: float = 1.0):
+    """gate, up (E, D, F) and down (E, F, D) stacks of random payloads with
+    constant 0.01 scales (down scaled by ``damp``), as benchmarks/bench_moe.py
+    builds them: packed w4 (g 32), packed E2M1 or int8-doubled E2M1 (g 16)."""
+    from quantizers_tpu_torch.models.moe import ExpertLinears
+    from quantizers_tpu_torch.ops.linear import nvfp4_packed_to_i8
+
+    dev = gen.device
+    kind, g = ("w4", 32) if payload == "w4" else ("nvfp4", NVFP4_G)
+
+    def one(k, n, s):
+        w = torch.randint(0, 256, (E, k // 2, n), dtype=torch.uint8, device=dev, generator=gen)
+        sc = torch.full((E, k // g, n), s, dtype=torch.bfloat16, device=dev)
+        if payload == "int8":
+            w, sc = nvfp4_packed_to_i8(w), (sc.float() * 0.5).bfloat16()
+        return ExpertLinears(kind=kind, weight=w, scale=sc,
+                             meta=(("k", k), ("n", n), ("group_size", g)))
+    return one(D, Fe, 0.01), one(D, Fe, 0.01), one(Fe, D, 0.01 * damp)
+
+
+def w8pc_stacks(gen, E: int, D: int, Fe: int):
+    """The fused w8pc layout: gate|up int8 (E, D, 2F) and down int8 (E, F, D),
+    f32 per-channel scales (E, 1, N)."""
+    from quantizers_tpu_torch.models.moe import ExpertLinears
+
+    dev = gen.device
+
+    def one(k, n, meta):
+        return ExpertLinears(
+            kind="w8", weight=torch.randint(-127, 128, (E, k, n), dtype=torch.int8, device=dev,
+                                            generator=gen),
+            scale=torch.rand((E, 1, n), device=dev, generator=gen) * 0.0015 + 5e-4,
+            meta=(("k", k), ("n", n), ("group_size", None)) + meta)
+    return one(D, 2 * Fe, (("fused", "gate_up"),)), one(Fe, D, ())
+
+
+def routed_ids(gen, tokens: int = BATCH, E: int = 128, k: int = 8) -> torch.Tensor:
+    """Slot expert ids as a router gives them: top-k of random logits per
+    token (64 slots over about 50 distinct experts)."""
+    logits = torch.randn((tokens, E), device=gen.device, generator=gen)
+    return torch.topk(logits, k, dim=-1).indices.reshape(-1).to(torch.int32)
+
+
+def check_slot(gen, payload: str, timed: bool) -> dict:
+    """K6 (packed w4, packed E2M1, int8-doubled E2M1) or K7 (``w8pc``) at
+    the Qwen3-30B-A3B decode shape: 8 tokens x top-8 = 64 slots."""
+    from quantizers_tpu_torch.models.moe import _slot_dequant
+    from quantizers_tpu_torch.ops import kernels as K
+
+    E, D, Fe = 128, 2048, 768
+    dev = gen.device
+    if payload == "w8pc":
+        name, wrapper, plain = "moe_slot_gu_ffn", K.moe_slot_gu_ffn, K.moe_slot_gu_ffn_plain
+        stacks = w8pc_stacks(gen, E, D, Fe)
+    else:
+        name, wrapper, plain = "moe_slot_ffn", K.moe_slot_ffn, K.moe_slot_ffn_plain
+        stacks = moe_stacks(gen, payload, E, D, Fe)
+    idx = routed_ids(gen)
+    S = idx.numel()
+    x = torch.randn((S, D), device=dev, generator=gen).bfloat16()
+    got = wrapper(x, idx, *stacks)
+    err, tol = row_check(name, got, plain(x, idx, *stacks), payload)
+    check(torch.equal(wrapper(x, idx, *stacks), got), f"{name} {payload}: differs from run to run")
+    distinct = int(torch.unique(idx).numel())
+    row = {"S": S, "D": D, "F": Fe, "E": E, "distinct_experts": distinct,
+           "max_abs_err": err, "tol": tol}
+    if not timed:
+        return row
+    per_expert = tensor_bytes(list(stacks)) / E
+    copies = rotating([stacks, tuple(dataclasses.replace(el, weight=el.weight.clone(),
+                                                         scale=el.scale.clone())
+                                     for el in stacks)])
+    before = wrapper.launches
+    row["ms"] = cuda_ms(lambda: wrapper(x, idx, *copies()))
+    wrapper.launches = before
+    row["plain_ms"] = cuda_ms(lambda: plain(x, idx, *copies()), iters=3, warmup=1)
+    # the yardstick: two torch.bmm calls on experts gathered and dequantized
+    # to bf16 beforehand (no single PyTorch call computes the slot FFN)
+    if payload == "w8pc":
+        gu_b = _slot_dequant(stacks[0], idx)
+    else:
+        gu_b = torch.cat([_slot_dequant(stacks[0], idx), _slot_dequant(stacks[1], idx)], dim=-1)
+    dn_b = _slot_dequant(stacks[-1], idx)
+
+    def library():
+        guv = torch.bmm(x[:, None, :], gu_b)[:, 0]
+        a = (F.silu(guv[:, :Fe].float()) * guv[:, Fe:].float()).bfloat16()
+        return torch.bmm(a[:, None, :], dn_b)[:, 0]
+
+    row["library_ms"] = cuda_ms(library)
+    row["library"] = "two torch.bmm on pre-gathered bf16 experts"
+    del gu_b, dn_b
+    nbytes = S * D * 2 + S * 4 + distinct * per_expert + S * D * 4
+    row.update(bound(nbytes, 2 * S * 3 * D * Fe))
+    return row
+
+
+def slice2_kernels(gen, detail) -> dict:
+    """K3 with f32 scales, K5a/K5b at the four Qwen3-4B decode shapes (m 8)
+    and the expert shapes (m 128), K6 in its three payloads and K7."""
+    from quantizers_tpu_torch.ops import kernels as K
+
+    D, Fq, Q, KVD = 2560, 9728, 4096, 1024
+    decode_shapes = {"qkv": (D, Q + 2 * KVD), "o_proj": (Q, D), "gate_up": (D, 2 * Fq),
+                     "down": (Fq, D)}
+    expert_shapes = {"expert_gate": (2048, 768), "expert_down": (768, 2048)}
+    rows = {"nvfp4_matmul": {}, "nvfp4_i8_matmul": {}, "w8_matmul_f32": {}}
+    for layout, key in (("packed", "nvfp4_matmul"), ("int8", "nvfp4_i8_matmul")):
+        for label, (k, n) in decode_shapes.items():
+            rows[key][f"{label}@m8"] = check_nvfp4(gen, k, n, 8, layout, timed=True)
+        for label, (k, n) in expert_shapes.items():
+            rows[key][f"{label}@m128"] = check_nvfp4(gen, k, n, 128, layout, timed=False)
+        for label, r in rows[key].items():
+            log(f"[kernels] {key} {label}: {r}")
+    plain8 = lambda x, lin: K.w8_matmul_plain(x, lin.weight, lin.scale,  # noqa: E731
+                                              lin.meta_dict["group_size"])
+    for label, (k, n) in (("w8pc_gate_up@m128", (2048, 1536)), ("w8pc_down@m128", (768, 2048))):
+        rows["w8_matmul_f32"][label] = check_matmul("w8_matmul", K.w8_matmul, plain8, gen, k, n,
+                                                    128, None, timed=False,
+                                                    scale_dtype=torch.float32)
+        log(f"[kernels] w8 f32 scales {label}: {rows['w8_matmul_f32'][label]}")
+    rows["moe_slot_ffn"] = {p: check_slot(gen, p, timed=True) for p in ("packed", "int8", "w4")}
+    rows["moe_slot_gu_ffn"] = {"w8pc": check_slot(gen, "w8pc", timed=True)}
+    for key in ("moe_slot_ffn", "moe_slot_gu_ffn"):
+        for label, r in rows[key].items():
+            log(f"[kernels] {key} {label}: {r}")
+    detail["kernels"].update(rows)
+    return rows
+
+
+def build_moe_params(spec, gen, payload: str = "packed"):
+    """Synthetic Qwen3-30B-A3B params as benchmarks/bench_moe.py builds them,
+    on the card: random E2M1 expert codes with constant 0.01 scales, unit-scale
+    embeddings, o_proj and down damped by 1e-3 (so that the residual stream
+    does not collapse across rows and the routing stays diverse); attention
+    bf16 and an f32 router, as in recipe_moe_rtn_nvfp4."""
+    from quantizers_tpu_torch.ops.linear import QuantLinear
+
+    dev = gen.device
+    D, E, Fe, hd = spec.hidden_size, spec.num_experts, spec.moe_intermediate_size, spec.head_dim
+
+    def ones(n):
+        return torch.ones((n,), dtype=torch.bfloat16, device=dev)
+
+    def dense(k, n, std=0.02, dtype=torch.bfloat16):
+        w = (torch.randn((k, n), device=dev, generator=gen) * std).to(dtype)
+        return QuantLinear(kind="dense", weight=w, meta=(("k", k), ("n", n)))
+
+    layers = []
+    for _ in range(spec.num_layers):
+        g, u, d = moe_stacks(gen, payload, E, D, Fe, damp=1e-3)
+        layers.append({
+            "input_layernorm": ones(D), "post_attention_layernorm": ones(D),
+            "q_proj": dense(D, spec.q_dim), "k_proj": dense(D, spec.kv_dim),
+            "v_proj": dense(D, spec.kv_dim), "o_proj": dense(spec.q_dim, D, 0.02e-3),
+            "q_norm": ones(hd), "k_norm": ones(hd),
+            "moe": {"router": dense(D, E, dtype=torch.float32),
+                    "gate_proj": g, "up_proj": u, "down_proj": d}})
+    embed = torch.randn((spec.vocab_size, D), device=dev, generator=gen).bfloat16()
+    return {"embed": embed, "layers": layers, "final_norm": ones(D), "lm_head": None}
+
+
+class RouteRecorder:
+    """Records every router decision of ``moe_forward`` while active: the
+    top-k ids, and the k-th and (k+1)-th softmax probabilities. Given the
+    ``calls`` of another run, it makes each decision take that run's ids
+    instead (the combine weights still come from this run's router
+    probabilities), after recording its own choice."""
+
+    def __init__(self, replay=None):
+        self.replay = replay
+
+    def __enter__(self):
+        from quantizers_tpu_torch.models import moe as M
+
+        self.M, self.orig, self.calls = M, M.route_topk_sparse, []
+
+        def rec(logits, top_k, norm_topk_prob, **kw):
+            topi, topv = self.orig(logits, top_k, norm_topk_prob, **kw)
+            probs = torch.softmax(logits.float(), dim=-1)
+            pk = probs.topk(top_k + 1, dim=-1).values
+            self.calls.append((topi.cpu(), pk[:, -2].cpu(), pk[:, -1].cpu()))
+            if self.replay is not None:  # the softmax router of qwen3_moe
+                topi = self.replay[len(self.calls) - 1][0].to(logits.device)
+                topv = torch.gather(probs, -1, topi.long())
+                if norm_topk_prob:
+                    topv = topv / (torch.sum(topv, dim=-1, keepdim=True) + 1e-20)
+                topv = topv * kw.get("routed_scaling_factor", 1.0)
+            return topi, topv
+        M.route_topk_sparse = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.M.route_topk_sparse = self.orig
+        return False
+
+
+@torch.no_grad()
+def forced_decode(params, spec, caches, first, forced):
+    """Decode steps fed a teacher-forced token stream (as bench_moe.py: a
+    random model under argmax repeats one token, and its rows route alike);
+    the argmax stays in each step through a dead data dependency."""
+    from quantizers_tpu_torch.models import forward
+
+    tok = first
+    for ft in forced:
+        logits, caches = forward(params, spec, tok[:, None], caches=caches)
+        tok = ft + torch.argmax(logits[:, 0], dim=-1).clamp(max=0)
+    return tok
+
+
+def moe_step_bytes(spec, params, distinct: float, steps: int) -> dict:
+    """Bytes one decode step must read: the attention weights, norms and
+    router of every layer, ``distinct`` experts per layer (w8pc as served;
+    the packed NVFP4 expert size beside it), the head, B embedding rows, and
+    the KV cache's valid prefix averaged over ``steps`` steps."""
+    layers = params["layers"]
+    E, D, Fe = spec.num_experts, spec.hidden_size, spec.moe_intermediate_size
+    dense = sum(tensor_bytes({k: v for k, v in lyr.items() if k != "moe"})
+                + tensor_bytes(lyr["moe"]["router"]) for lyr in layers)
+    moe0 = layers[0]["moe"]
+    w8pc_expert = tensor_bytes([moe0["gate_up_proj"], moe0["down_proj"]]) / E
+    packed_expert = 3 * (D * Fe // 2 + (D // NVFP4_G) * Fe * 2)
+    head = tensor_bytes(params["lm_head"]) + tensor_bytes(params["final_norm"])
+    row_kv = spec.num_layers * BATCH * spec.num_kv_heads * spec.head_dim * 2 * 2
+    kv = row_kv * sum(PREFILL + i + 1 for i in range(steps)) / steps
+    base = dense + head + BATCH * D * 2 + kv
+    L = spec.num_layers
+    return {"dense_and_head": dense + head, "kv_valid": kv, "w8pc_expert": w8pc_expert,
+            "packed_expert": packed_expert, "distinct_per_layer": distinct,
+            "w8pc_total": base + L * distinct * w8pc_expert,
+            "packed_total": base + L * distinct * packed_expert}
+
+
+def serve_moe_phase(gen, detail):
+    """Path A: Qwen3-30B-A3B, 48 layers, NVFP4 experts served as w8pc."""
+    from quantizers_tpu_torch.models import KVCache, ModelSpec
+    from quantizers_tpu_torch.ops import kernels as K
+    from quantizers_tpu_torch.serve import prefill, serving_layout
+    from quantizers_tpu_torch.serve.engine import _decode_scan
+
+    spec = ModelSpec(**MOE_GEOMETRY)
+    dev = gen.device
+    L = spec.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    # no reference to the packed params outlives this call: serving_layout
+    # frees each layer's packed experts once they are requantized
+    params = serving_layout(spec, build_moe_params(spec, gen), head_bits=8, device=dev)
+    torch.cuda.synchronize()
+    t_layout = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    resident = torch.cuda.memory_allocated()
+    log(f"[moe] params + serving_layout(head_bits=8): {t_layout:.1f} s; peak "
+        f"{peak / 1e9:.2f} GB, resident {resident / 1e9:.2f} GB")
+    E, D, Fe = spec.num_experts, spec.hidden_size, spec.moe_intermediate_size
+    for lyr in params["layers"]:
+        m = lyr["moe"]
+        check(sorted(m) == ["down_proj", "gate_up_proj", "router"]
+              and m["gate_up_proj"].weight.shape == (E, D, 2 * Fe)
+              and m["gate_up_proj"].scale.dtype == torch.float32
+              and m["down_proj"].weight.dtype == torch.int8, "path A: w8pc expert layout")
+    check(params["lm_head"].kind == "w8" and "qkv_proj" in params["layers"][0], "head, fused qkv")
+    ids = ((torch.arange(BATCH * PREFILL, device=dev).reshape(BATCH, PREFILL) * 97 + 1)
+           % spec.vocab_size)
+
+    # warm-up (allocator, cuBLAS): not counted
+    wc = KVCache.init(spec, BATCH, MAX_LEN, device=dev)
+    last, wc = prefill(params, spec, ids, wc)
+    _decode_scan(params, spec, wc, last.argmax(-1), None, steps=2, temperature=0.0, top_k=0)
+    del wc
+
+    # the main path, with every launch count set to 0 just before it
+    caches = KVCache.init(spec, BATCH, MAX_LEN, device=dev)
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last, caches = prefill(params, spec, ids, caches)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    after_prefill = K.launch_counts()
+    first = last.argmax(-1)
+    caches0 = [c.clone() for c in caches]
+    t0 = time.perf_counter()
+    toks, _ = _decode_scan(params, spec, caches, first, None, steps=MOE_STEPS,
+                           temperature=0.0, top_k=0)
+    torch.cuda.synchronize()
+    t_greedy = time.perf_counter() - t0
+    counts = K.launch_counts()
+    log(f"[moe] prefill {BATCH}x{PREFILL}: {t_prefill:.3f} s; launches {after_prefill}")
+    log(f"[moe] greedy decode {MOE_STEPS} steps: {t_greedy:.3f} s; launches {counts}")
+    check(not any(after_prefill.values()),
+          f"path A prefill at m={BATCH * PREFILL} must launch no kernel: {after_prefill}")
+    want = expect(moe_slot_gu_ffn=L * MOE_STEPS, decode_attention=L * MOE_STEPS,
+                  w8_matmul=MOE_STEPS)
+    check(counts == want, f"path A decode launch counts {counts} != {want}")
+    check(toks.shape == (BATCH, MOE_STEPS) and bool(((toks >= 0) & (toks < spec.vocab_size)).all()),
+          "path A: decoded ids out of range")
+
+    # teacher-forced timed decode from the prefilled state
+    forced = torch.randint(0, spec.vocab_size, (MOE_TIMED_STEPS, BATCH),
+                           generator=torch.Generator().manual_seed(1)).to(dev)
+    with RouteRecorder() as rec:
+        forced_decode(params, spec, [c.clone() for c in caches0], first, forced[:4])
+    distinct = [int(torch.unique(topi).numel()) for topi, _, _ in rec.calls]
+    d_mean = sum(distinct) / len(distinct)
+    forced_decode(params, spec, [c.clone() for c in caches0], first, forced[:2])  # warm
+    c = [cc.clone() for cc in caches0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    forced_decode(params, spec, c, first, forced)
+    torch.cuda.synchronize()
+    t_forced = (time.perf_counter() - t0) / MOE_TIMED_STEPS
+    del c
+    sb = moe_step_bytes(spec, params, d_mean, MOE_TIMED_STEPS)
+    bound_w8pc = sb["w8pc_total"] / HBM_BYTES_PER_S
+    bound_packed = sb["packed_total"] / HBM_BYTES_PER_S
+    prof = device_profile(lambda: forced_decode(params, spec, [cc.clone() for cc in caches0],
+                                                first, forced[:8]), 8)
+    res = {"layers": L, "layout": "w8pc", "serving_layout_s": t_layout,
+           "peak_memory_gb": peak / 1e9, "resident_gb": resident / 1e9,
+           "prefill_ms": t_prefill * 1e3, "greedy_ms_per_step": t_greedy / MOE_STEPS * 1e3,
+           "ms_per_step": t_forced * 1e3, "tok_s": BATCH / t_forced,
+           "distinct_experts_per_layer": {"mean": d_mean, "min": min(distinct),
+                                          "max": max(distinct)},
+           "bytes_per_step": sb, "bound_ms_w8pc": bound_w8pc * 1e3,
+           "bound_ms_packed": bound_packed * 1e3, "frac_of_bound_w8pc": bound_w8pc / t_forced,
+           "frac_of_bound_packed": bound_packed / t_forced, "profile": prof}
+    detail["serve_moe"] = res
+    log(f"[moe] forced decode: {res['ms_per_step']:.2f} ms/step, {res['tok_s']:.1f} tok/s; "
+        f"distinct experts/layer {d_mean:.1f} ({min(distinct)}-{max(distinct)}); bytes bound "
+        f"{res['bound_ms_w8pc']:.3f} ms (w8pc) / {res['bound_ms_packed']:.3f} ms (packed): "
+        f"{res['frac_of_bound_w8pc']:.4f} / {res['frac_of_bound_packed']:.4f}")
+    log(f"[moe] profile: {json.dumps(prof)}")
+    del caches, caches0
+    return spec, params, counts
+
+
+def moe_batcher_phase(spec, params, gen, detail):
+    """Path A through ``ContinuousBatcher``: a dozen mixed-length requests
+    on the served params (their layout is kept as it is). Each row prefill
+    (a 32- or 128-token bucket) loops over the experts through the w8
+    kernel; each decode step runs the slot kernel."""
+    from quantizers_tpu_torch.ops import kernels as K
+    from quantizers_tpu_torch.serve import ContinuousBatcher
+
+    rng = torch.Generator().manual_seed(11)
+    t0 = time.perf_counter()
+    s = ContinuousBatcher(spec, params, max_batch=BATCH, max_len=MAX_LEN, device=gen.device)
+    reqs = {}
+    for _ in range(12):
+        T = int(torch.randint(5, 121, (1,), generator=rng))
+        n = int(torch.randint(8, 17, (1,), generator=rng))
+        prompt = torch.randint(1, spec.vocab_size, (T,), generator=rng).tolist()
+        reqs[s.submit(prompt, n)] = n
+    K.reset_launch_counts()
+    res = s.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = K.launch_counts()
+    check(sorted(res) == sorted(reqs), "path A batcher: not every request finished")
+    for rid, n in reqs.items():
+        check(len(res[rid]) == n, f"path A batcher: request {rid} has {len(res[rid])} != {n} tokens")
+        check(all(0 <= t < spec.vocab_size for t in res[rid]), "path A batcher: id out of range")
+    L, E = spec.num_layers, spec.num_experts
+    steps = counts["decode_attention"] // L
+    # each row prefill: 2 w8 calls per expert and layer, plus the head
+    want = expect(decode_attention=L * steps, moe_slot_gu_ffn=L * steps,
+                  w8_matmul=len(reqs) * (2 * E * L + 1) + steps)
+    check(steps > 0 and counts == want, f"path A batcher launches {counts} != {want}")
+    detail["batcher_moe"] = {"requests": len(reqs), "tokens": sum(reqs.values()),
+                             "decode_steps": steps, "seconds": dt, "launches": counts}
+    log(f"[moe batcher] {detail['batcher_moe']}")
+
+
+def build_nvfp4_dense(spec, gen):
+    """Qwen3-4B with every projection NVFP4 (recipe_dense_nvfp4): random E2M1
+    codes with scales in [0.004, 0.012]."""
+    dev = gen.device
+    D, Ff = spec.hidden_size, spec.intermediate_size
+
+    def ones(n):
+        return torch.ones((n,), dtype=torch.bfloat16, device=dev)
+
+    layers = [{"input_layernorm": ones(D), "post_attention_layernorm": ones(D),
+               "q_proj": nvfp4_linear(gen, D, spec.q_dim),
+               "k_proj": nvfp4_linear(gen, D, spec.kv_dim),
+               "v_proj": nvfp4_linear(gen, D, spec.kv_dim),
+               "o_proj": nvfp4_linear(gen, spec.q_dim, D),
+               "q_norm": ones(spec.head_dim), "k_norm": ones(spec.head_dim),
+               "mlp": {"gate_proj": nvfp4_linear(gen, D, Ff), "up_proj": nvfp4_linear(gen, D, Ff),
+                       "down_proj": nvfp4_linear(gen, Ff, D)}}
+              for _ in range(spec.num_layers)]
+    embed = (torch.randn((spec.vocab_size, D), device=dev, generator=gen) * 0.02).bfloat16()
+    return {"embed": embed, "layers": layers, "final_norm": ones(D), "lm_head": None}
+
+
+def drive_side_path(label, spec, params, per_step: dict, row_prefill: dict = None) -> dict:
+    """Prefill 8 x 128 (no kernel), SIDE_STEPS greedy steps with exact
+    launch counts, and optionally a 1 x 128 row prefill (the batcher's)."""
+    from quantizers_tpu_torch.models import KVCache
+    from quantizers_tpu_torch.ops import kernels as K
+    from quantizers_tpu_torch.serve import prefill
+    from quantizers_tpu_torch.serve.engine import _decode_scan
+
+    dev = params["embed"].device
+    ids = ((torch.arange(BATCH * PREFILL, device=dev).reshape(BATCH, PREFILL) * 89 + 3)
+           % spec.vocab_size)
+    caches = KVCache.init(spec, BATCH, MAX_LEN, device=dev)
+    K.reset_launch_counts()
+    last, caches = prefill(params, spec, ids, caches)
+    check(not any(K.launch_counts().values()), f"{label}: prefill launched a kernel")
+    _decode_scan(params, spec, caches, last.argmax(-1), None, steps=1, temperature=0.0, top_k=0)
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, _ = _decode_scan(params, spec, caches, last.argmax(-1), None, steps=SIDE_STEPS,
+                           temperature=0.0, top_k=0)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / SIDE_STEPS
+    counts = K.launch_counts()
+    want = expect(**{k: v * SIDE_STEPS for k, v in per_step.items()})
+    check(counts == want, f"{label}: decode launch counts {counts} != {want}")
+    check(bool(((toks >= 0) & (toks < spec.vocab_size)).all()), f"{label}: ids out of range")
+    row = {"layers": spec.num_layers, "steps": SIDE_STEPS, "ms_per_step": dt * 1e3,
+           "launches_per_step": {k: v // SIDE_STEPS for k, v in counts.items() if v}}
+    if row_prefill is not None:
+        rc = KVCache.init(spec, 1, MAX_LEN, device=dev)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        prefill(params, spec, ids[:1], rc)
+        torch.cuda.synchronize()
+        row["row_prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        got = K.launch_counts()
+        check(got == expect(**row_prefill), f"{label}: row prefill launches {got} != {row_prefill}")
+        row["row_prefill_launches"] = {k: v for k, v in got.items() if v}
+    log(f"[side] {label}: {row}")
+    return row
+
+
+def side_paths_phase(gen, detail) -> dict:
+    """Paths B (packed and int8 experts, Qwen3-30B-A3B width) and C (dense
+    NVFP4 Qwen3-4B, int8 and packed layouts), SIDE_LAYERS layers each."""
+    from quantizers_tpu_torch.models import ModelSpec
+    from quantizers_tpu_torch.serve import serving_layout
+
+    dev = gen.device
+    rows = {}
+    spec = ModelSpec(**dict(MOE_GEOMETRY, num_layers=SIDE_LAYERS))
+    L, E = SIDE_LAYERS, spec.num_experts
+    for layout, k5 in (("packed", "nvfp4_matmul"), ("int8", "nvfp4_i8_matmul")):
+        params = serving_layout(spec, build_moe_params(spec, gen), head_bits=8, device=dev,
+                                moe_layout=layout)
+        gate = params["layers"][0]["moe"]["gate_proj"]
+        check(gate.kind == "nvfp4" and gate.weight.dtype == (torch.uint8 if layout == "packed"
+                                                             else torch.int8),
+              f"path B {layout}: expert layout")
+        rows[f"B_{layout}"] = drive_side_path(
+            f"path B {layout}", spec, params,
+            {"moe_slot_ffn": L, "decode_attention": L, "w8_matmul": 1},
+            row_prefill={k5: 3 * E * L, "w8_matmul": 1})
+        del params
+    spec_c = ModelSpec(**dict(GEOMETRY, num_layers=SIDE_LAYERS))
+    for layout, k5 in ((None, "nvfp4_i8_matmul"), ("packed", "nvfp4_matmul")):
+        params = serving_layout(spec_c, build_nvfp4_dense(spec_c, gen), head_bits=8, device=dev,
+                                nvfp4_layout=layout)
+        qkv = params["layers"][0]["qkv_proj"]
+        check(qkv.kind == "nvfp4" and qkv.weight.dtype == (torch.uint8 if layout == "packed"
+                                                           else torch.int8),
+              f"path C {layout or 'default'}: layout")
+        rows[f"C_{layout or 'default_int8'}"] = drive_side_path(
+            f"path C {layout or 'default (int8)'}", spec_c, params,
+            {k5: 4 * L, "decode_attention": L, "w8_matmul": 1})
+        del params
+    detail["side_paths"] = rows
+    return rows
+
+
+def card_vs_cpu_moe(detail, devices=("cuda", "cpu")):
+    """Path A at 2 layers, full width, through the same converted weights
+    and the same (w8pc) layout on both devices: prefill 2 x 16 (the loop
+    over every expert), then 15 teacher-forced decode steps (the slot path).
+    The CPU runs first. Each of the card's router decisions is compared
+    with the CPU's: a token whose top-k differs must be a near-tie on the
+    CPU. The card then takes the CPU's choice, so that the logits compare
+    the same function at every position."""
+    from quantizers_tpu_torch.convert import params_from_numpy
+    from quantizers_tpu_torch.models import KVCache, ModelSpec, forward
+    from quantizers_tpu_torch.serve import serving_layout
+
+    spec = ModelSpec(**dict(MOE_GEOMETRY, num_layers=2))
+    rng = np.random.default_rng(4321)
+    D, E, Fe = spec.hidden_size, spec.num_experts, spec.moe_intermediate_size
+
+    def dense(kk, n, std=0.02):
+        return {"kind": "dense", "weight": (rng.standard_normal((kk, n)) * std).astype(np.float32),
+                "meta": (("k", kk), ("n", n))}
+
+    def stack(kk, n):
+        return {"kind": "nvfp4", "weight": rng.integers(0, 256, (E, kk // 2, n), dtype=np.uint8),
+                "scale": rng.uniform(0.005, 0.015, (E, kk // NVFP4_G, n)).astype(np.float32),
+                "meta": (("k", kk), ("n", n), ("group_size", NVFP4_G))}
+
+    ones = lambda n: np.ones((n,), np.float32)  # noqa: E731
+    tree = {"embed": rng.standard_normal((spec.vocab_size, D), dtype=np.float32),
+            "layers": [{"input_layernorm": ones(D), "post_attention_layernorm": ones(D),
+                        "q_proj": dense(D, spec.q_dim), "k_proj": dense(D, spec.kv_dim),
+                        "v_proj": dense(D, spec.kv_dim), "o_proj": dense(spec.q_dim, D),
+                        "q_norm": ones(spec.head_dim), "k_norm": ones(spec.head_dim),
+                        "moe": {"router": dense(D, E), "gate_proj": stack(D, Fe),
+                                "up_proj": stack(D, Fe), "down_proj": stack(Fe, D)}}
+                       for _ in range(spec.num_layers)],
+            "final_norm": ones(D), "lm_head": None}
+
+    def as_bf16(p):
+        # numpy has no bf16: attention, norms, embedding and scales cross as
+        # f32; the router stays f32
+        for layer in p["layers"]:
+            for key, v in list(layer.items()):
+                if isinstance(v, torch.Tensor):
+                    layer[key] = v.bfloat16()
+                elif key.endswith("_proj"):
+                    v.weight = v.weight.bfloat16()
+            for key in ("gate_proj", "up_proj", "down_proj"):
+                layer["moe"][key].scale = layer["moe"][key].scale.bfloat16()
+        p["embed"], p["final_norm"] = p["embed"].bfloat16(), p["final_norm"].bfloat16()
+        return p
+
+    B, T, n_dec = 2, 16, 16
+    ids = rng.integers(1, spec.vocab_size, (B, T + n_dec))
+    out, routes = {}, {}
+    for dev in reversed(devices):  # the reference first: the card replays its routes
+        t0 = time.perf_counter()
+        p = serving_layout(spec, as_bf16(params_from_numpy(tree, device=dev)), head_bits=8,
+                           device=dev)
+        check("gate_up_proj" in p["layers"][0]["moe"], f"card vs CPU: w8pc layout on {dev}")
+        caches = KVCache.init(spec, B, 64, device=dev)
+        logits = []
+        with torch.no_grad(), RouteRecorder(routes.get(devices[1])) as rec:
+            lg, caches = forward(p, spec, torch.as_tensor(ids[:, :T], device=dev), caches=caches)
+            logits.append(lg[:, -1].float().cpu())
+            for t in range(T, T + n_dec - 1):
+                lg, caches = forward(p, spec, torch.as_tensor(ids[:, t:t + 1], device=dev),
+                                     caches=caches)
+                logits.append(lg[:, -1].float().cpu())
+        out[dev], routes[dev] = torch.stack(logits, 1), rec.calls
+        log(f"[card-vs-cpu moe] {dev}: {time.perf_counter() - t0:.1f} s")
+        del p, caches
+    got, ref = (out[d] for d in devices)
+    rgot, rref = (routes[d] for d in devices)
+    check(len(rgot) == len(rref) == spec.num_layers * n_dec, "card vs CPU moe: router calls")
+    flips = near = 0
+    for c, ((ti, _, _), (ri, pk, pk1)) in enumerate(zip(rgot, rref)):
+        step = c // spec.num_layers  # 0: prefill (B x T tokens), then one token per step
+        for n in range(ri.shape[0]):
+            b, t = (n // T, n % T) if step == 0 else (n, T + step - 1)
+            tie = bool(pk[n] - pk1[n] <= ROUTE_GAP_RTOL * pk[n])
+            near += int(tie)
+            if set(ti[n].tolist()) != set(ri[n].tolist()):
+                flips += 1
+                check(tie, f"card vs CPU moe: router choice differs at row {b} position {t} "
+                           f"(call {c}), where the CPU's gap {float(pk[n] - pk1[n]):.3g} is no "
+                           f"near-tie")
+    check(bool(torch.isfinite(got).all()), "card vs CPU moe: card logits not finite")
+    g, r = got, ref
+    err = (g - r).abs().max().item()
+    tol = LOGIT_RTOL * r.abs().max().item()
+    norm_err = ((g - r).norm(dim=-1) / r.norm(dim=-1)).max().item()
+    top2 = r.topk(2, dim=-1).values
+    ulp = torch.exp2(torch.floor(torch.log2(top2[..., 0].abs())) - 7)
+    tie = (top2[..., 0] - top2[..., 1]) <= TIE_ULPS * ulp
+    agree = g.argmax(-1) == r.argmax(-1)
+    detail["card_vs_cpu_moe"] = {
+        "layers": spec.num_layers, "prefill": [B, T], "decode_steps": n_dec - 1,
+        "router_decisions": sum(x[0].shape[0] for x in rref), "router_flips": flips,
+        "router_near_ties": near, "router_gap_rtol": ROUTE_GAP_RTOL,
+        "positions": agree.numel(), "max_abs_err": err, "tol": tol,
+        "max_abs_logit": r.abs().max().item(), "max_rel_norm_err": norm_err,
+        "rel_norm_tol": LOGIT_NORM_RTOL, "argmax_agreement": agree.float().mean().item(),
+        "near_ties": int(tie.sum())}
+    log(f"[card-vs-cpu moe] {detail['card_vs_cpu_moe']}")
+    check(err <= tol, f"card vs CPU moe logits: max |err| {err:.4g} > tol {tol:.4g}")
+    check(norm_err <= LOGIT_NORM_RTOL,
+          f"card vs CPU moe logits: relative error norm {norm_err:.4g} > {LOGIT_NORM_RTOL}")
+    check(bool((agree | tie).all()),
+          f"card vs CPU moe: greedy token differs at {int((~agree & ~tie).sum())} positions "
+          f"that are no near-tie")
 
 
 # ---------------------------------------------------------------------------
@@ -646,18 +1354,31 @@ def main() -> int:
     attn = check_decode_attention(gen, timed=True)
     log(f"[kernels] decode_attention: {attn}")
     detail["kernels"] = {"w4_matmul": w4_rows, "w8_matmul": w8_rows, "decode_attention": attn}
+    s2 = slice2_kernels(gen, detail)
 
-    # phase 4: serve
+    # phase 4: serve, slice 1
     spec, raw, counts = serve_phase(gen, detail)
 
-    # phase 5: card against CPU
-    card_vs_cpu(detail)
+    # phase 5: serve, slice 2, path A (the main path), and its batcher
+    spec_moe, params_moe, counts_moe = serve_moe_phase(gen, detail)
+    moe_batcher_phase(spec_moe, params_moe, gen, detail)
+    del params_moe
+    torch.cuda.empty_cache()
 
-    # phase 6: batcher
+    # phase 6: paths B and C
+    side = side_paths_phase(gen, detail)
+    torch.cuda.empty_cache()
+
+    # phase 7: card against CPU
+    card_vs_cpu(detail)
+    card_vs_cpu_moe(detail)
+
+    # phase 8: batcher, slice 1
     batcher_phase(spec, raw, gen, detail)
     del raw
 
-    # phase 7: the kernels line (w4: the four calls of one decoder layer, summed)
+    # phase 9: the kernels line (w4 and the NVFP4 matmuls: the four calls of
+    # one decoder layer at m = 8, summed)
     timed4 = [w4_rows[f"{lbl}@m8"] for lbl in w4_shapes]
 
     def total(rows, key):
@@ -668,30 +1389,62 @@ def main() -> int:
         label, r = max(rows.items(), key=lambda kv: kv[1]["max_abs_err"] / kv[1]["tol"])
         return {"max_abs_err": r["max_abs_err"], "tol": r["tol"], "worst_at": label}
 
+    def layer_sum(rows):
+        timed = [r for r in rows.values() if "ms" in r]
+        return {key: total(timed, key) for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+
     src = "quantizers_tpu_torch/csrc/"
+    w8_all = dict(w8_rows, **s2["w8_matmul_f32"])
     kernels_line = [
         {"name": "w4_matmul", "route": "cuda", "source": src + "w4_matmul.cu",
          "replaces": "quantizers_tpu/ops/kernels.py:159", "launches": counts["w4_matmul"],
-         **worst(w4_rows), "ms": total(timed4, "ms"), "plain_ms": total(timed4, "plain_ms"),
-         "bound_ms": total(timed4, "bound_ms"), "bound_by": "bytes",
-         "library_ms": total(timed4, "library_ms")},
+         "path": "slice 1 decode", **worst(w4_rows), "ms": total(timed4, "ms"),
+         "plain_ms": total(timed4, "plain_ms"), "bound_ms": total(timed4, "bound_ms"),
+         "bound_by": "bytes", "library_ms": total(timed4, "library_ms")},
         {"name": "w8_matmul", "route": "cuda", "source": src + "w8_matmul.cu",
-         "replaces": "quantizers_tpu/ops/kernels.py:581", "launches": counts["w8_matmul"],
-         **worst(w8_rows), "ms": w8_rows["head@m8"]["ms"], "plain_ms": w8_rows["head@m8"]["plain_ms"],
-         "bound_ms": w8_rows["head@m8"]["bound_ms"], "bound_by": w8_rows["head@m8"]["bound_by"],
+         "replaces": "quantizers_tpu/ops/kernels.py:581", "launches": counts_moe["w8_matmul"],
+         "path": "A decode", **worst(w8_all), "ms": w8_rows["head@m8"]["ms"],
+         "plain_ms": w8_rows["head@m8"]["plain_ms"], "bound_ms": w8_rows["head@m8"]["bound_ms"],
+         "bound_by": w8_rows["head@m8"]["bound_by"],
          "library_ms": w8_rows["head@m8"]["library_ms"]},
         {"name": "decode_attention", "route": "cuda", "source": src + "decode_attention.cu",
-         "replaces": "quantizers_tpu/ops/kernels.py:768", "launches": counts["decode_attention"],
+         "replaces": "quantizers_tpu/ops/kernels.py:768",
+         "launches": counts_moe["decode_attention"], "path": "A decode",
          "max_abs_err": attn["max_abs_err"], "tol": attn["tol"],
          "worst_at": attn["worst_at"], "ms": attn["ms"],
          "plain_ms": attn["plain_ms"], "bound_ms": attn["bound_ms"],
          "bound_by": attn["bound_by"], "library_ms": attn["library_ms"]},
+        {"name": "nvfp4_matmul", "route": "cuda", "source": src + "nvfp4_matmul.cu",
+         "replaces": "quantizers_tpu/ops/kernels.py:329",
+         "launches": side["C_packed"]["launches_per_step"]["nvfp4_matmul"] * SIDE_STEPS,
+         "path": "C packed decode", **worst(s2["nvfp4_matmul"]),
+         **layer_sum(s2["nvfp4_matmul"]), "bound_by": "bytes"},
+        {"name": "nvfp4_i8_matmul", "route": "cuda", "source": src + "nvfp4_matmul.cu",
+         "replaces": "quantizers_tpu/ops/kernels.py:385",
+         "launches": side["C_default_int8"]["launches_per_step"]["nvfp4_i8_matmul"] * SIDE_STEPS,
+         "path": "C default (int8) decode", **worst(s2["nvfp4_i8_matmul"]),
+         **layer_sum(s2["nvfp4_i8_matmul"]), "bound_by": "bytes"},
+        {"name": "moe_slot_ffn", "route": "cuda", "source": src + "moe_slot_ffn.cu",
+         "replaces": "quantizers_tpu/ops/kernels.py:1134",
+         "launches": side["B_packed"]["launches_per_step"]["moe_slot_ffn"] * SIDE_STEPS,
+         "path": "B packed decode",
+         **worst(s2["moe_slot_ffn"]),
+         **{key: s2["moe_slot_ffn"]["packed"][key]
+            for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
+        {"name": "moe_slot_gu_ffn", "route": "cuda", "source": src + "moe_slot_gu_ffn.cu",
+         "replaces": "quantizers_tpu/ops/kernels.py:1304",
+         "launches": counts_moe["moe_slot_gu_ffn"], "path": "A decode",
+         **worst(s2["moe_slot_gu_ffn"]),
+         **{key: s2["moe_slot_gu_ffn"]["w8pc"][key]
+            for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
     ]
+    check(all(k["launches"] > 0 for k in kernels_line), "a kernel never launched on its path")
     detail["total_s"] = time.perf_counter() - t_start
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_detail.json").write_text(json.dumps(detail, indent=1))
-    log(f"[done] {detail['total_s']:.1f} s; serve {json.dumps(detail['serve'])}")
+    log(f"[done] {detail['total_s']:.1f} s; serve {json.dumps(detail['serve'])}; "
+        f"path A {json.dumps({k: v for k, v in detail['serve_moe'].items() if k != 'profile'})}")
     print(json.dumps({"kernels": kernels_line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

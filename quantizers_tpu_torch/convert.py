@@ -3,8 +3,12 @@
 :func:`params_from_numpy` walks a params tree of dicts and lists whose
 leaves are arrays (anything ``np.asarray`` takes) and quantized linears:
 any object with ``kind / weight / scale / zero_point / bias / meta``
-attributes, or a dict with those keys. It imports nothing of the JAX
-package; the at-rest layouts are the same on both sides.
+attributes, or a dict with those keys. Such an object becomes the port's
+:class:`~quantizers_tpu_torch.models.moe.ExpertLinears` when it is an
+expert stack (it has ``num_experts``, or its weight has a leading expert
+axis: three dimensions), else a
+:class:`~quantizers_tpu_torch.ops.linear.QuantLinear`. It imports nothing
+of the JAX package; the at-rest layouts are the same on both sides.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ import numpy as np
 import torch
 
 from ._device import DeviceLike, resolve_device
+from .models.moe import ExpertLinears
 from .ops.linear import QuantLinear
 
 _LINEAR_FIELDS = ("kind", "weight", "scale", "zero_point", "bias", "meta")
@@ -38,15 +43,27 @@ def _meta_value(v: Any) -> Any:
     return v if v is None or isinstance(v, (str, bool)) else int(v)
 
 
-def _linear(obj: Any, device: torch.device) -> QuantLinear:
-    get = obj.get if isinstance(obj, dict) else (lambda f: getattr(obj, f, None))
+def _getter(obj: Any):
+    return obj.get if isinstance(obj, dict) else (lambda f: getattr(obj, f, None))
+
+
+def _is_expert_stack(obj: Any) -> bool:
+    if hasattr(obj, "num_experts"):
+        return True
+    w = _getter(obj)("weight")
+    return w is not None and len(np.shape(w)) == 3
+
+
+def _linear(obj: Any, device: torch.device):
+    get = _getter(obj)
 
     def arr(f):
         return None if get(f) is None else to_tensor(get(f), device)
 
-    return QuantLinear(kind=str(get("kind")), weight=arr("weight"), scale=arr("scale"),
-                       zero_point=arr("zero_point"), bias=arr("bias"),
-                       meta=tuple((str(k), _meta_value(v)) for k, v in (get("meta") or ())))
+    cls = ExpertLinears if _is_expert_stack(obj) else QuantLinear
+    return cls(kind=str(get("kind")), weight=arr("weight"), scale=arr("scale"),
+               zero_point=arr("zero_point"), bias=arr("bias"),
+               meta=tuple((str(k), _meta_value(v)) for k, v in (get("meta") or ())))
 
 
 def _is_linear(obj: Any) -> bool:

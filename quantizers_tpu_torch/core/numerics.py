@@ -1,9 +1,11 @@
-"""Quantization numerics in PyTorch: INT scale solving, quantize, dequantize.
+"""Quantization numerics in PyTorch: scale solving, quantize, dequantize.
 
 Counterpart of ``quantizers_tpu/core/numerics.py`` for the INT strategies
-(tensor, channel, group, token). FP8 and NVFP4 (``tensor_group``) arrive
-with their own port slices. Weights follow the HF ``(out, in)`` convention;
-reduction for scales is along ``in`` unless the strategy says otherwise.
+(tensor, channel, group, token) and NVFP4 (``tensor_group``: E2M1 values
+with 16-wide group scales snapped to FP8 E4M3 under an f32 global scale).
+FP8 weights arrive with their port slice. Weights follow the HF
+``(out, in)`` convention; reduction for scales is along ``in`` unless the
+strategy says otherwise.
 """
 
 from __future__ import annotations
@@ -13,16 +15,16 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .scheme import QuantizationArgs, QuantStrategy, QuantType
+from .scheme import FP4_E2M1_MAX, FP8_E4M3_MAX, QuantizationArgs, QuantStrategy, QuantType
 
 
 class QuantizedTensor(NamedTuple):
     """Quantized values (int8 for INT schemes) plus what dequantizes them."""
 
-    values: torch.Tensor
+    values: torch.Tensor  # int8 codes (INT) or f32 grid values (NVFP4)
     scale: torch.Tensor
     zero_point: Optional[torch.Tensor]
-    global_scale: Optional[torch.Tensor]
+    global_scale: Optional[torch.Tensor]  # NVFP4 second-level scale
     shape: Tuple[int, ...]  # original (unpadded) shape
 
 
@@ -44,8 +46,35 @@ def _round_half_away(x: torch.Tensor) -> torch.Tensor:
 
 def _not_int(args: QuantizationArgs) -> NotImplementedError:
     return NotImplementedError(
-        f"{args.type.value}{args.num_bits} numerics are not ported yet "
-        "(FP8 and NVFP4 land with their ROADMAP slices)")
+        f"{args.type.value}{args.num_bits} weight numerics are not ported yet "
+        "(FP8 weights land with ROADMAP queue 1, slice 5)")
+
+
+def quantize_to_fp8(x: torch.Tensor) -> torch.Tensor:
+    """Round values to the FP8 E4M3 grid (clipped to +-448), as f32. The
+    cast rounds to nearest, ties to even, as ml_dtypes does."""
+    clipped = torch.clamp(x.float(), -FP8_E4M3_MAX, FP8_E4M3_MAX)
+    return clipped.to(torch.float8_e4m3fn).float()
+
+
+def quantize_to_fp4(x: torch.Tensor) -> torch.Tensor:
+    """Round values to the FP4 E2M1 grid {0, +-.5, +-1, +-1.5, +-2, +-3, +-4,
+    +-6}; a magnitude on a midpoint goes to the smaller neighbour."""
+    a = torch.abs(x)
+    q = torch.full_like(a, 6.0)
+    # midpoints between neighbours, largest first, so the smallest wins
+    for mid, val in ((5.0, 4.0), (3.5, 3.0), (2.5, 2.0), (1.75, 1.5),
+                     (1.25, 1.0), (0.75, 0.5), (0.25, 0.0)):
+        q = torch.where(a <= mid, torch.full_like(a, val), q)
+    return torch.sign(x) * q
+
+
+def compute_global_scale(w: torch.Tensor, args: QuantizationArgs) -> torch.Tensor:
+    """NVFP4 second-level scale: 448 * 6 / absmax(tensor), f32, so that the
+    group scales map into the FP8 E4M3 range."""
+    absmax = torch.clamp(torch.max(torch.abs(w.float())), min=torch.finfo(torch.float32).tiny)
+    # a true division: ``scalar / tensor`` would multiply by a reciprocal
+    return torch.full_like(absmax, FP8_E4M3_MAX * FP4_E2M1_MAX) / absmax
 
 
 def compute_scale_zp(min_val: torch.Tensor, max_val: torch.Tensor,
@@ -80,7 +109,7 @@ def minmax_along(w: torch.Tensor, args: QuantizationArgs
         return w.min(), w.max()
     if s in (QuantStrategy.CHANNEL, QuantStrategy.TOKEN):
         return w.amin(dim=-1, keepdim=True), w.amax(dim=-1, keepdim=True)
-    if s == QuantStrategy.GROUP:
+    if s in (QuantStrategy.GROUP, QuantStrategy.TENSOR_GROUP):
         g = _grouped(w, int(args.group_size))
         return g.amin(dim=-1), g.amax(dim=-1)
     raise NotImplementedError(f"strategy {s.value} is not ported yet")
@@ -94,10 +123,34 @@ def _snap(x: torch.Tensor, args: QuantizationArgs) -> torch.Tensor:
     return torch.clamp(_round_half_away(x), qmin, qmax)
 
 
+def _quantize_nvfp4(w: torch.Tensor, args: QuantizationArgs,
+                    scale: Optional[torch.Tensor],
+                    global_scale: Optional[torch.Tensor]) -> QuantizedTensor:
+    """The ``tensor_group`` branch of :func:`quantize`, in the JAX package's
+    order of f32 operations."""
+    orig_shape = tuple(w.shape)
+    if global_scale is None:
+        global_scale = compute_global_scale(w, args)
+    g = _grouped(w, int(args.group_size))
+    if scale is None:
+        amax = torch.amax(torch.abs(g), dim=-1)
+        raw_scale = amax / torch.full_like(amax, FP4_E2M1_MAX)  # a true division
+        # the scale lives on the FP8 grid (its on-disk dtype)
+        scale = quantize_to_fp8(raw_scale * global_scale)
+    eff = torch.clamp(scale / global_scale, min=torch.finfo(torch.float32).tiny)
+    q = quantize_to_fp4(g / eff[..., None])
+    q = q.reshape(orig_shape[0], -1)[:, : orig_shape[1]]
+    return QuantizedTensor(q, scale, None, global_scale, orig_shape)
+
+
 def quantize(w: torch.Tensor, args: QuantizationArgs,
              scale: Optional[torch.Tensor] = None,
-             zero_point: Optional[torch.Tensor] = None) -> QuantizedTensor:
-    """Quantize ``w`` under INT ``args``; solves min/max scales if not given."""
+             zero_point: Optional[torch.Tensor] = None,
+             global_scale: Optional[torch.Tensor] = None) -> QuantizedTensor:
+    """Quantize ``w`` under INT or NVFP4 (``tensor_group``) ``args``; solves
+    min/max (NVFP4: absmax and global) scales if not given."""
+    if args.strategy == QuantStrategy.TENSOR_GROUP:
+        return _quantize_nvfp4(w.float(), args, scale, global_scale)
     if args.type != QuantType.INT:
         raise _not_int(args)
     if args.observer and "mse" in args.observer:
@@ -131,6 +184,10 @@ def dequantize(qt: QuantizedTensor, args: QuantizationArgs) -> torch.Tensor:
     q = qt.values.float()
     scale = qt.scale.float()
     s = args.strategy
+    if s == QuantStrategy.TENSOR_GROUP:
+        g = _grouped(q, int(args.group_size))
+        w = g * (scale / qt.global_scale)[..., None]
+        return w.reshape(qt.shape[0], -1)[:, : qt.shape[1]]
     if s in (QuantStrategy.TENSOR, QuantStrategy.CHANNEL, QuantStrategy.TOKEN):
         if qt.zero_point is not None:
             q = q - qt.zero_point

@@ -1,4 +1,4 @@
-// Shared pieces of the weight-only matmul kernels (w4_matmul.cu, w8_matmul.cu).
+// Shared pieces of the weight-only matmul and slot-FFN kernels.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -16,6 +16,29 @@ static inline int segment_rows(int g) {
   int s = g < kMaxSeg ? g : kMaxSeg;
   while (g % s) --s;
   return s;
+}
+
+static inline int gcd_int(int a, int b) {
+  while (b) {
+    const int t = a % b;
+    a = b;
+    b = t;
+  }
+  return a;
+}
+
+// An E2M1 code (0..15) as a float. The eight magnitudes doubled,
+// {0, 1, 2, 3, 4, 6, 8, 12}, sit in the nibbles of one 32-bit constant, so
+// the decode is a shift and a mask in registers; bit 3 is the sign.
+__device__ __forceinline__ float fp4_value(uint32_t code) {
+  const float mag = (float)((0xC8643210u >> ((code & 7u) * 4u)) & 0xFu) * 0.5f;
+  return (code & 8u) ? -mag : mag;
+}
+
+// Round an f32 to the nearest bf16 (ties to even) and widen it again: the
+// point where the JAX kernels round a dequantized weight to bf16.
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 // Stage x[m0 : m0+8, k0 : k0+rows] of a row-major bf16 (M, K) activation

@@ -1,8 +1,10 @@
 // INT8 weight-only matmul for Hopper (sm_90a): y = x @ W^T, bf16 out.
 //
 // Replaces quantizers_tpu/ops/kernels.py `_w8_kernel` / `_w8_matmul_2d`.
-// Weights int8 (K, N); bf16 scales per channel (1, N) or per group
-// (K/g, N). A per-channel scale is passed as one group of g = K rows.
+// Weights int8 (K, N); bf16 or f32 scales per channel (1, N) or per group
+// (K/g, N). A per-channel scale is passed as one group of g = K rows. The
+// kernel is templated on the scale type: f32 scales (the w8pc expert
+// layout's) are read as they are, never rounded to bf16.
 // x bf16 (M, K), M <= 512. On the serving path it is the int8 logits head:
 // M 8, K 2560, N 152064 (the vocab padded to a multiple of 1536).
 //
@@ -42,9 +44,23 @@ __device__ __forceinline__ float s8(uint32_t w, int i) {
   return (float)(int8_t)((w >> (8 * i)) & 0xFF);
 }
 
+// the four scales of a lane's columns, widened to f32
+__device__ __forceinline__ void load_scale4(const __nv_bfloat16* p, float (&sv)[kCols]) {
+  const __nv_bfloat162* sp = reinterpret_cast<const __nv_bfloat162*>(p);
+  const float2 sa = __bfloat1622float2(sp[0]);
+  const float2 sb = __bfloat1622float2(sp[1]);
+  sv[0] = sa.x; sv[1] = sa.y; sv[2] = sb.x; sv[3] = sb.y;
+}
+
+__device__ __forceinline__ void load_scale4(const float* p, float (&sv)[kCols]) {
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) sv[j] = p[j];
+}
+
+template <typename ScaleT>
 __global__ void __launch_bounds__(kThreads)
 w8_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w8,
-          const __nv_bfloat16* __restrict__ scale, __nv_bfloat16* __restrict__ out,
+          const ScaleT* __restrict__ scale, __nv_bfloat16* __restrict__ out,
           int M, int K, int N, int g, int seg) {
   __shared__ __align__(16) float smem[kSmem];
   float* xs = smem;
@@ -91,11 +107,8 @@ w8_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w8,
 #pragma unroll
         for (int j = 0; j < kCols; ++j) part[m][j] = fmaf(xv[m], wv[j], part[m][j]);
     }
-    const __nv_bfloat162* sp = reinterpret_cast<const __nv_bfloat162*>(
-        scale + (size_t)((c0 + s0) / g) * N + col);
-    const float2 sa = __bfloat1622float2(sp[0]);
-    const float2 sb = __bfloat1622float2(sp[1]);
-    const float sv[kCols] = {sa.x, sa.y, sb.x, sb.y};
+    float sv[kCols];
+    load_scale4(scale + (size_t)((c0 + s0) / g) * N + col, sv);
 #pragma unroll
     for (int m = 0; m < kMTile; ++m)
 #pragma unroll
@@ -112,15 +125,27 @@ w8_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w8,
   reduce_store<kWarps>(red, kBlockCols, out, M, N, m0, col0);
 }
 
+template <typename ScaleT>
+int launch(const void* x, const void* w8, const void* scale, void* out, int M, int K, int N,
+           int g, void* stream) {
+  if (M <= 0 || g <= 0 || K % g || N % kBlockCols) return (int)cudaErrorInvalidValue;
+  const dim3 grid(N / kBlockCols, (M + kMTile - 1) / kMTile);
+  w8_kernel<ScaleT><<<grid, kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w8),
+      static_cast<const ScaleT*>(scale), static_cast<__nv_bfloat16*>(out),
+      M, K, N, g, segment_rows(g));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int qtt_w8_matmul(const void* x, const void* w8, const void* scale, void* out,
                              int M, int K, int N, int g, void* stream) {
-  if (M <= 0 || g <= 0 || K % g || N % kBlockCols) return (int)cudaErrorInvalidValue;
-  const dim3 grid(N / kBlockCols, (M + kMTile - 1) / kMTile);
-  w8_kernel<<<grid, kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w8),
-      static_cast<const __nv_bfloat16*>(scale), static_cast<__nv_bfloat16*>(out),
-      M, K, N, g, segment_rows(g));
-  return (int)cudaGetLastError();
+  return launch<__nv_bfloat16>(x, w8, scale, out, M, K, N, g, stream);
+}
+
+// the same with f32 scales
+extern "C" int qtt_w8_matmul_f32s(const void* x, const void* w8, const void* scale, void* out,
+                                  int M, int K, int N, int g, void* stream) {
+  return launch<float>(x, w8, scale, out, M, K, N, g, stream);
 }

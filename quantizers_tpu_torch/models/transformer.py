@@ -1,8 +1,10 @@
-"""Decoder-only transformer over QuantLinear weights, dense path, in PyTorch.
+"""Decoder-only transformer over QuantLinear weights, dense and MoE, in PyTorch.
 
 Counterpart of ``quantizers_tpu/models/transformer.py``. Params are a plain
 dict, ``{"embed", "layers": [per-layer dict...], "final_norm", "lm_head"}``,
-with every projection a :class:`~quantizers_tpu_torch.ops.linear.QuantLinear`.
+with every projection a :class:`~quantizers_tpu_torch.ops.linear.QuantLinear`
+and, in an MoE layer, a ``"moe"`` dict of router and expert stacks
+(:mod:`.moe`).
 The rounding points follow the JAX package: norms in f32 then cast, rope
 tables cast to the activation dtype, SiLU in f32 then cast, f32
 accumulation in every product.
@@ -10,7 +12,7 @@ accumulation in every product.
 Unlike the JAX package, the KV cache is updated in place: prefill and the
 decode kernel write into the caller's buffers and advance ``length``.
 Clone a cache (:meth:`KVCache.clone`) to replay a decode from one start.
-MoE and MLA models wait for their port slices.
+MLA models wait for their port slice.
 """
 
 from __future__ import annotations
@@ -25,11 +27,10 @@ from .._device import DeviceLike, resolve_device
 from ..ops.dispatch import matmul_f32acc
 from ..ops.linear import QuantLinear, concat_linears, dense_linear
 from .config import ModelSpec
+from .moe import ExpertLinears, moe_forward
 
 
-def _dense_only(spec: ModelSpec) -> None:
-    if spec.is_moe:
-        raise NotImplementedError("MoE models are not ported yet: ROADMAP queue 1, slice 4")
+def _no_mla(spec: ModelSpec) -> None:
     if spec.is_mla:
         raise NotImplementedError("MLA models are not ported yet: ROADMAP queue 1, slice 5")
 
@@ -82,7 +83,7 @@ class KVCache:
              device: DeviceLike = None) -> List["KVCache"]:
         """Zeroed bf16 caches, one per layer. (The fp8 cache of the JAX
         package waits for ROADMAP queue 1, slice 5.)"""
-        _dense_only(spec)
+        _no_mla(spec)
         dev = resolve_device(device)
         (hk, dk), (hv, dv) = spec.kv_cache_dims()
         return [cls(k=torch.zeros((batch, hk, max_len, dk), dtype=torch.bfloat16, device=dev),
@@ -197,14 +198,17 @@ def dense_mlp(mlp: Dict[str, QuantLinear], x: torch.Tensor) -> torch.Tensor:
 
 def apply_layer(layer: Dict[str, Any], spec: ModelSpec, layer_idx: int,
                 x: torch.Tensor, positions: torch.Tensor,
-                cache: Optional[KVCache] = None
+                cache: Optional[KVCache] = None, moe_all_experts: bool = False
                 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
-    """One decoder block."""
-    _dense_only(spec)
+    """One decoder block. ``moe_all_experts`` sends an MoE layer's tokens
+    through the loop over every expert even when few."""
+    _no_mla(spec)
     h = rms_norm(x, layer["input_layernorm"], spec.rms_norm_eps)
     attn_out, cache = attention(layer, spec, h, positions, cache)
     x = x + attn_out
     h = rms_norm(x, layer["post_attention_layernorm"], spec.rms_norm_eps)
+    if spec.layer_is_moe(layer_idx):
+        return x + moe_forward(layer["moe"], spec, h, all_experts=moe_all_experts), cache
     return x + dense_mlp(layer["mlp"], h), cache
 
 
@@ -249,8 +253,9 @@ def forward(params: Dict[str, Any], spec: ModelSpec, input_ids: torch.Tensor,
 def fuse_for_decode(spec: ModelSpec, params: Dict[str, Any]) -> Dict[str, Any]:
     """Fuse same-input projections (q/k/v -> qkv_proj, gate/up ->
     gateup_proj) into single QuantLinears: 4 matmul launches per layer
-    instead of 7. Parts of different kinds or layouts stay unfused."""
-    _dense_only(spec)
+    instead of 7. Parts of different kinds or layouts stay unfused; MoE
+    layers keep their expert stacks (``moe_w8pc_layout`` fuses those)."""
+    _no_mla(spec)
     out = dict(params)
     layers = []
     for layer in params["layers"]:
@@ -261,7 +266,7 @@ def fuse_for_decode(spec: ModelSpec, params: Dict[str, Any]) -> Dict[str, Any]:
                 del lyr["q_proj"], lyr["k_proj"], lyr["v_proj"]
             except ValueError:
                 pass
-        if "gate_proj" in lyr["mlp"]:
+        if "mlp" in lyr and "gate_proj" in lyr["mlp"]:
             mlp = dict(lyr["mlp"])
             try:
                 mlp["gateup_proj"] = concat_linears([mlp["gate_proj"], mlp["up_proj"]])
@@ -318,7 +323,7 @@ def tree_to(tree: Any, device: torch.device) -> Any:
         return {k: tree_to(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_to(v, device) for v in tree)
-    if isinstance(tree, (QuantLinear, torch.Tensor)):
+    if isinstance(tree, (QuantLinear, ExpertLinears, torch.Tensor)):
         return tree.to(device)
     return tree
 
@@ -328,23 +333,27 @@ def tree_to(tree: Any, device: torch.device) -> Any:
 # ---------------------------------------------------------------------------
 
 def init_params(spec: ModelSpec, seed: int = 0, device: DeviceLike = None) -> Dict[str, Any]:
-    """Random dense params made on ``device`` from a seeded ``torch.Generator``
-    (its numbers differ from ``jax.random``'s for the same seed)."""
-    _dense_only(spec)
+    """Random dense (bf16) params made on ``device`` from a seeded
+    ``torch.Generator`` (its numbers differ from ``jax.random``'s for the
+    same seed). MoE layers get an f32 router and bf16 expert stacks."""
+    _no_mla(spec)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     D, Ff = spec.hidden_size, spec.intermediate_size
 
-    def rand_linear(n: int, k: int, bias: bool = False) -> QuantLinear:
+    def rand_linear(n: int, k: int, bias: bool = False, dtype=torch.bfloat16) -> QuantLinear:
         w = torch.randn((n, k), generator=gen, device=dev) * 0.02
         b = torch.zeros((n,), device=dev) if bias else None
-        return dense_linear(w, bias=b)
+        return dense_linear(w, bias=b, dtype=dtype)
+
+    def experts(n: int, k: int) -> ExpertLinears:
+        return ExpertLinears.stack([rand_linear(n, k) for _ in range(spec.num_experts)])
 
     def ones(n: int) -> torch.Tensor:
         return torch.ones((n,), dtype=torch.bfloat16, device=dev)
 
     layers: List[Dict[str, Any]] = []
-    for _ in range(spec.num_layers):
+    for i in range(spec.num_layers):
         layer: Dict[str, Any] = {
             "input_layernorm": ones(D),
             "post_attention_layernorm": ones(D),
@@ -352,12 +361,27 @@ def init_params(spec: ModelSpec, seed: int = 0, device: DeviceLike = None) -> Di
             "k_proj": rand_linear(spec.kv_dim, D, spec.attention_bias),
             "v_proj": rand_linear(spec.kv_dim, D, spec.attention_bias),
             "o_proj": rand_linear(D, spec.q_dim),
-            "mlp": {
+        }
+        if spec.layer_is_moe(i):
+            E, Fe = spec.num_experts, spec.moe_intermediate_size
+            moe: Dict[str, Any] = {
+                "router": rand_linear(E, D, dtype=torch.float32),
+                "gate_proj": experts(Fe, D), "up_proj": experts(Fe, D),
+                "down_proj": experts(D, Fe)}
+            if spec.scoring_func == "sigmoid":
+                moe["e_score_correction_bias"] = torch.zeros((E,), device=dev)
+            if spec.num_shared_experts:
+                Fs = Fe * spec.num_shared_experts
+                moe["shared_experts"] = {"gate_proj": rand_linear(Fs, D),
+                                         "up_proj": rand_linear(Fs, D),
+                                         "down_proj": rand_linear(D, Fs)}
+            layer["moe"] = moe
+        else:
+            layer["mlp"] = {
                 "gate_proj": rand_linear(Ff, D, spec.mlp_bias),
                 "up_proj": rand_linear(Ff, D, spec.mlp_bias),
                 "down_proj": rand_linear(D, Ff, spec.mlp_bias),
-            },
-        }
+            }
         if spec.qk_norm:
             layer["q_norm"] = ones(spec.head_dim)
             layer["k_norm"] = ones(spec.head_dim)

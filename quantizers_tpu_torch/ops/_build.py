@@ -24,7 +24,8 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_kernels_build"
-SOURCES = ("w4_matmul.cu", "w8_matmul.cu", "decode_attention.cu")
+SOURCES = ("w4_matmul.cu", "w8_matmul.cu", "decode_attention.cu", "nvfp4_matmul.cu",
+           "moe_slot_ffn.cu", "moe_slot_gu_ffn.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -34,11 +35,19 @@ _I = ctypes.c_int
 SIGNATURES = {
     # x, packed, scale, out, M, K, N, g, stream
     "qtt_w4_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # x, w8, scale, out, M, K, N, g, stream
+    # x, w8, scale, out, M, K, N, g, stream (bf16 scales; _f32s: f32 scales)
     "qtt_w8_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "qtt_w8_matmul_f32s": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # q, new_k, new_v, cache_k, cache_v, lengths, ctx, B, KV, rep, S, hd, sm_scale, stream
     "qtt_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              ctypes.c_float, _P),
+    # x, payload (packed u8 or int8-doubled), scale, out, M, K, N, g, stream
+    "qtt_nvfp4_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "qtt_nvfp4_i8_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # payload kind, x, idx, gate w/s, up w/s, down w/s, a workspace, out, S, D, F, E, g, stream
+    "qtt_moe_slot_ffn": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, idx, gate|up w/s, down w/s, a workspace, out, S, D, F, E, stream
+    "qtt_moe_slot_gu_ffn": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 

@@ -9,9 +9,18 @@ current stream and raises if the launch fails. It adds one to its
 
 * :func:`w4_matmul` replaces ``quantizers_tpu/ops/kernels.py``
   ``_w4_matmul_2d`` and ``_w4i_matmul_2d`` (W4A16, group scales);
-* :func:`w8_matmul` replaces ``_w8_matmul_2d`` (int8, channel or group);
+* :func:`w8_matmul` replaces ``_w8_matmul_2d`` (int8, channel or group,
+  bf16 or f32 scales);
 * :func:`decode_attention` replaces ``_decode_attention_call`` (one-token
-  GQA attention with the new K/V row written into the cache in place).
+  GQA attention with the new K/V row written into the cache in place);
+* :func:`nvfp4_matmul` replaces ``_nvfp4_matmul_2d`` (packed E2M1 codes)
+  and hands the int8-doubled layout to :func:`nvfp4_i8_matmul`, which
+  replaces ``_nvfp4_i8_matmul_2d``;
+* :func:`moe_slot_ffn` replaces ``_moe_slot_ffn_call`` (the gated FFN of
+  routed expert slots over packed w4, packed E2M1 or int8-doubled E2M1
+  stacks);
+* :func:`moe_slot_gu_ffn` replaces ``_moe_slot_gu_call`` (the same over
+  the fused int8 per-channel gate|up layout).
 
 Importing this module needs neither ``nvcc`` nor a card: the library is
 built at the first launch.
@@ -22,9 +31,10 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
-from .linear import QuantLinear, _unpack_nibbles
+from .linear import QuantLinear, _unpack_fp4, _unpack_nibbles
 
 
 class KernelUnsupported(Exception):
@@ -122,8 +132,8 @@ def _w8_reason(lin: QuantLinear) -> Optional[str]:
         quantum = max(8 * int(g), 256)
         if k % quantum or quantum % int(g):
             return f"w8 kernel: group {g} does not tile K={k}"
-    if lin.weight.dtype != torch.int8 or lin.scale.dtype != torch.bfloat16:
-        return "w8 kernel takes int8 weights with bf16 scales"
+    if lin.weight.dtype != torch.int8 or lin.scale.dtype not in (torch.bfloat16, torch.float32):
+        return "w8 kernel takes int8 weights with bf16 or f32 scales"
     return None
 
 
@@ -150,7 +160,8 @@ def w8_matmul(x: torch.Tensor, lin: QuantLinear) -> torch.Tensor:
         out = w8_matmul_plain(x2, lin.weight, lin.scale, g)
     elif x2.is_cuda:
         # a per-channel scale is one group spanning all of K
-        out = _launch_matmul("qtt_w8_matmul", w8_matmul, x2, lin, int(g) if g else k)
+        entry = "qtt_w8_matmul_f32s" if lin.scale.dtype == torch.float32 else "qtt_w8_matmul"
+        out = _launch_matmul(entry, w8_matmul, x2, lin, int(g) if g else k)
     else:
         raise ValueError(f"w8_matmul: no kernel for device {x2.device}")
     return out.reshape(*lead, n).to(x.dtype)
@@ -170,8 +181,75 @@ def _launch_matmul(entry: str, wrapper: Callable, x2: torch.Tensor, lin: QuantLi
     return out
 
 
-KERNELS: Dict[str, Callable] = {"w4": w4_matmul, "w8": w8_matmul}
-_REASONS: Dict[str, Callable] = {"w4": _w4_reason, "w8": _w8_reason}
+# ---------------------------------------------------------------------------
+# NVFP4: packed E2M1 uint8 (K/2, N) or int8-doubled (K, N); bf16 effective
+# group scales (K/g, N), halved in the int8 layout
+# ---------------------------------------------------------------------------
+
+def _nvfp4_reason(lin: QuantLinear) -> Optional[str]:
+    md = lin.meta_dict
+    k, n, g = int(md["k"]), int(md["n"]), int(md.get("group_size", 16))
+    if lin.zero_point is not None:
+        return "asymmetric nvfp4 goes through the reference path"
+    if k % (2 * g) or n % 128:
+        return f"nvfp4 kernel needs 2g|K and 128|N (k={k}, n={n})"
+    if lin.scale.dtype != torch.bfloat16:
+        return "nvfp4 kernel takes bf16 scales"
+    if lin.weight.dtype == torch.uint8:
+        if (k // 2) % (8 * g):  # the JAX kernel's K tiles are multiples of 8g packed rows
+            return f"nvfp4 kernel needs 8g | K/2 (k={k}, g={g})"
+    elif lin.weight.dtype == torch.int8:
+        if k % (8 * g):
+            return f"nvfp4 int8 kernel needs 8g | K (k={k}, g={g})"
+    else:
+        return "nvfp4 kernel takes packed uint8 or int8-doubled weights"
+    return None
+
+
+def nvfp4_matmul_plain(x2: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor,
+                       g: int) -> torch.Tensor:
+    """The NVFP4 kernels' arithmetic in PyTorch: value * scale in f32 (exact),
+    rounded to bf16 once, f32 products and sums, bf16 out. x2 (M, K) -> (M, N)."""
+    vals = weight.float() if weight.dtype == torch.int8 else _unpack_fp4(weight)
+    w = (vals * scale.float().repeat_interleave(g, dim=0)).to(torch.bfloat16)
+    return (x2.float() @ w.float()).to(torch.bfloat16)
+
+
+def _nvfp4_call(x: torch.Tensor, lin: QuantLinear, entry: str, wrapper: Callable) -> torch.Tensor:
+    reason = _nvfp4_reason(lin)
+    if reason:
+        raise KernelUnsupported(reason)
+    md = lin.meta_dict
+    k, n, g = int(md["k"]), int(md["n"]), int(md.get("group_size", 16))
+    x2, lead = _flatten_x(x, k)
+    if x2.device.type == "cpu":
+        out = nvfp4_matmul_plain(x2, lin.weight, lin.scale, g)
+    elif x2.is_cuda:
+        out = _launch_matmul(entry, wrapper, x2, lin, g)
+    else:
+        raise ValueError(f"{wrapper.__name__}: no kernel for device {x2.device}")
+    return out.reshape(*lead, n).to(x.dtype)
+
+
+@_count
+def nvfp4_i8_matmul(x: torch.Tensor, lin: QuantLinear) -> torch.Tensor:
+    """x (..., K) @ W^T for an NVFP4 linear in the int8-doubled layout."""
+    if lin.weight.dtype != torch.int8:
+        raise KernelUnsupported("nvfp4_i8_matmul takes the int8-doubled layout")
+    return _nvfp4_call(x, lin, "qtt_nvfp4_i8_matmul", nvfp4_i8_matmul)
+
+
+@_count
+def nvfp4_matmul(x: torch.Tensor, lin: QuantLinear) -> torch.Tensor:
+    """x (..., K) @ W^T for an NVFP4 linear -> (..., N): packed codes here,
+    the int8-doubled layout through :func:`nvfp4_i8_matmul`."""
+    if lin.weight.dtype == torch.int8:
+        return nvfp4_i8_matmul(x, lin)
+    return _nvfp4_call(x, lin, "qtt_nvfp4_matmul", nvfp4_matmul)
+
+
+KERNELS: Dict[str, Callable] = {"w4": w4_matmul, "w8": w8_matmul, "nvfp4": nvfp4_matmul}
+_REASONS: Dict[str, Callable] = {"w4": _w4_reason, "w8": _w8_reason, "nvfp4": _nvfp4_reason}
 
 
 def supports(lin: QuantLinear) -> bool:
@@ -257,7 +335,161 @@ def decode_attention(q: torch.Tensor, new_k: torch.Tensor, new_v: torch.Tensor,
     return ctx
 
 
-ALL_KERNELS = (w4_matmul, w8_matmul, decode_attention)
+# ---------------------------------------------------------------------------
+# MoE slot FFN: the gated FFN of S (token, expert) slots over expert stacks
+# ---------------------------------------------------------------------------
+
+#: payload codes of csrc/moe_slot_ffn.cu
+_SLOT_PAYLOAD = {("w4", torch.uint8): 0, ("nvfp4", torch.uint8): 1, ("nvfp4", torch.int8): 2}
+
+
+def moe_slot_ffn_reason(x: torch.Tensor, gate_el, up_el, down_el) -> Optional[str]:
+    """Why :func:`moe_slot_ffn` cannot take these slots (None if it can):
+    the JAX kernel's conditions (kind w4 or nvfp4, symmetric, 8|S, 128|D
+    and 128|F), plus one payload layout for the three stacks, bf16 scales
+    and groups that divide D and F."""
+    kind = gate_el.kind
+    if kind not in ("w4", "nvfp4"):
+        return f"moe_slot_ffn supports w4/nvfp4, got {kind}"
+    els = (gate_el, up_el, down_el)
+    if any(el.zero_point is not None for el in els):
+        return "asymmetric experts go through the gather reference"
+    S, D = x.shape
+    gm, dm = gate_el.meta_dict, down_el.meta_dict
+    Fe = int(gm["n"])
+    if S % 8 or D % 128 or int(dm["k"]) % 128:
+        return "moe_slot_ffn needs 8|S and 128|D,Fe"
+    if (int(gm["k"]) != D or int(dm["k"]) != Fe or int(dm["n"]) != D
+            or up_el.meta != gate_el.meta or down_el.kind != kind or up_el.kind != kind):
+        return "moe_slot_ffn: gate/up (E, D, F) and down (E, F, D) stacks of one kind"
+    payload = {_SLOT_PAYLOAD.get((kind, el.weight.dtype)) for el in els}
+    if len(payload) != 1 or None in payload:
+        return "moe_slot_ffn takes packed w4, packed nvfp4 or int8-doubled nvfp4 stacks"
+    if any(el.scale is None or el.scale.dtype != torch.bfloat16 for el in els):
+        return "moe_slot_ffn takes bf16 group scales"
+    g = int(gm.get("group_size", 16 if kind == "nvfp4" else 32))
+    if D % g or Fe % g or int(dm.get("group_size", g)) != g:
+        return f"moe_slot_ffn needs the group ({g}) to divide D and F"
+    return None
+
+
+def moe_slot_ffn_plain(x: torch.Tensor, idx: torch.Tensor, gate_el, up_el,
+                       down_el) -> torch.Tensor:
+    """The slot kernel's arithmetic in PyTorch: each gathered weight is
+    value * scale rounded to bf16, f32 products and sums,
+    a = bf16(silu(g) * u), y = a @ down in f32. x (S, D) -> (S, D) f32."""
+    from ..models.moe import _slot_dequant
+
+    xs = x.to(torch.bfloat16).float()[:, None, :]
+    g = torch.bmm(xs, _slot_dequant(gate_el, idx).float())[:, 0]
+    u = torch.bmm(xs, _slot_dequant(up_el, idx).float())[:, 0]
+    a = (F.silu(g) * u).to(torch.bfloat16).float()[:, None, :]
+    return torch.bmm(a, _slot_dequant(down_el, idx).float())[:, 0]
+
+
+@_count
+def moe_slot_ffn(x: torch.Tensor, idx: torch.Tensor, gate_el, up_el, down_el) -> torch.Tensor:
+    """Gated FFN of ``S`` expert slots: x (S, D) (a token row per slot),
+    idx (S,) expert ids; gate/up (E, D, F) and down (E, F, D) stacks.
+    Returns (S, D) f32, not yet combined."""
+    reason = moe_slot_ffn_reason(x, gate_el, up_el, down_el)
+    if reason:
+        raise KernelUnsupported(reason)
+    if x.device.type == "cpu":
+        return moe_slot_ffn_plain(x, idx, gate_el, up_el, down_el)
+    if not x.is_cuda:
+        raise ValueError(f"moe_slot_ffn: no kernel for device {x.device}")
+    S, D = x.shape
+    Fe = int(gate_el.meta_dict["n"])
+    g = int(gate_el.meta_dict.get("group_size", 16 if gate_el.kind == "nvfp4" else 32))
+    xb = x.to(torch.bfloat16).contiguous()
+    ids = idx.to(torch.int32).contiguous()
+    ts = [gate_el.weight, gate_el.scale, up_el.weight, up_el.scale, down_el.weight,
+          down_el.scale]
+    _check_cuda("moe_slot_ffn", xb, ids, *ts)
+    lib = _build.load()
+    a_ws = torch.empty((S, Fe), dtype=torch.bfloat16, device=x.device)
+    out = torch.empty((S, D), dtype=torch.float32, device=x.device)
+    payload = _SLOT_PAYLOAD[(gate_el.kind, gate_el.weight.dtype)]
+    err = lib.qtt_moe_slot_ffn(payload, xb.data_ptr(), ids.data_ptr(),
+                               *(t.data_ptr() for t in ts), a_ws.data_ptr(), out.data_ptr(),
+                               S, D, Fe, gate_el.num_experts, g, _stream(x.device))
+    _build.check(err, "moe_slot_ffn")
+    moe_slot_ffn.launches += 1
+    return out
+
+
+def moe_slot_gu_reason(x: torch.Tensor, gu_el, down_el) -> Optional[str]:
+    """Why :func:`moe_slot_gu_ffn` cannot take these slots (None if it
+    can): the JAX kernel's conditions without its VMEM limit (kind w8,
+    per-channel, symmetric, 8|S, 128|D, 256|2F, down K = F), int8 payloads
+    and scales of one row per expert."""
+    if gu_el.kind != "w8" or down_el.kind != "w8":
+        return "moe_slot_gu_ffn needs the w8pc layout"
+    if gu_el.meta_dict.get("group_size") or down_el.meta_dict.get("group_size"):
+        return "moe_slot_gu_ffn needs per-channel scales"
+    if gu_el.zero_point is not None or down_el.zero_point is not None:
+        return "asymmetric experts go through the gather reference"
+    S, D = x.shape
+    Fe2 = int(gu_el.meta_dict["n"])
+    if S % 8 or D % 128 or Fe2 % 256 or int(down_el.meta_dict["k"]) != Fe2 // 2:
+        return "moe_slot_gu_ffn geometry mismatch"
+    if int(gu_el.meta_dict["k"]) != D or int(down_el.meta_dict["n"]) != D:
+        return "moe_slot_gu_ffn: gate|up (E, D, 2F) and down (E, F, D) stacks"
+    if gu_el.weight.dtype != torch.int8 or down_el.weight.dtype != torch.int8:
+        return "moe_slot_gu_ffn takes int8 stacks"
+    if gu_el.scale.shape[-2] != 1 or down_el.scale.shape[-2] != 1:
+        return "moe_slot_gu_ffn takes (E, 1, N) per-channel scales"
+    return None
+
+
+def moe_slot_gu_ffn_plain(x: torch.Tensor, idx: torch.Tensor, gu_el, down_el) -> torch.Tensor:
+    """The fused slot kernel's arithmetic in PyTorch: int8 values (exact in
+    bf16) times bf16 x summed in f32, the per-channel f32 scales applied to
+    the sums, a = bf16(silu(g) * u). x (S, D) -> (S, D) f32."""
+    i = idx.long()
+    S = x.shape[0]
+    xs = x.to(torch.bfloat16).float()[:, None, :]
+    guv = torch.bmm(xs, gu_el.weight[i].float())[:, 0] * gu_el.scale[i].float().reshape(S, -1)
+    Fe = guv.shape[-1] // 2
+    a = (F.silu(guv[:, :Fe]) * guv[:, Fe:]).to(torch.bfloat16).float()[:, None, :]
+    return (torch.bmm(a, down_el.weight[i].float())[:, 0]
+            * down_el.scale[i].float().reshape(S, -1))
+
+
+@_count
+def moe_slot_gu_ffn(x: torch.Tensor, idx: torch.Tensor, gu_el, down_el) -> torch.Tensor:
+    """Gated FFN of ``S`` expert slots over the fused w8pc layout: gate|up
+    int8 (E, D, 2F) with f32 scales (E, 1, 2F), down int8 (E, F, D) with
+    (E, 1, D). Returns (S, D) f32, not yet combined."""
+    reason = moe_slot_gu_reason(x, gu_el, down_el)
+    if reason:
+        raise KernelUnsupported(reason)
+    if x.device.type == "cpu":
+        return moe_slot_gu_ffn_plain(x, idx, gu_el, down_el)
+    if not x.is_cuda:
+        raise ValueError(f"moe_slot_gu_ffn: no kernel for device {x.device}")
+    S, D = x.shape
+    Fe = int(gu_el.meta_dict["n"]) // 2
+    xb = x.to(torch.bfloat16).contiguous()
+    ids = idx.to(torch.int32).contiguous()
+    # the scales may be bf16: widening them is exact
+    ts = [gu_el.weight, gu_el.scale.float().contiguous(), down_el.weight,
+          down_el.scale.float().contiguous()]
+    _check_cuda("moe_slot_gu_ffn", xb, ids, *ts)
+    lib = _build.load()
+    a_ws = torch.empty((S, Fe), dtype=torch.bfloat16, device=x.device)
+    out = torch.empty((S, D), dtype=torch.float32, device=x.device)
+    err = lib.qtt_moe_slot_gu_ffn(xb.data_ptr(), ids.data_ptr(), *(t.data_ptr() for t in ts),
+                                  a_ws.data_ptr(), out.data_ptr(), S, D, Fe,
+                                  gu_el.num_experts, _stream(x.device))
+    _build.check(err, "moe_slot_gu_ffn")
+    moe_slot_gu_ffn.launches += 1
+    return out
+
+
+ALL_KERNELS = (w4_matmul, w8_matmul, decode_attention, nvfp4_matmul, nvfp4_i8_matmul,
+               moe_slot_ffn, moe_slot_gu_ffn)
 
 
 def reset_launch_counts() -> None:

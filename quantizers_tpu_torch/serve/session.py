@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import os
 from collections import deque
 from typing import Any, Deque, Dict, List, Optional, Sequence
 
@@ -53,21 +54,78 @@ def _merge_row(caches: List[KVCache], row_caches: List[KVCache], slot: int) -> L
     return caches
 
 
+MOE_LAYOUTS = ("w8pc", "int8", "packed")
+NVFP4_LAYOUTS = ("int8", "packed")
+
+
+def _layout_arg(value: Optional[str], env: str, default: Optional[str], allowed) -> Optional[str]:
+    if value is None:
+        value = os.environ.get(env) or default
+    if value is not None and value not in allowed:
+        raise ValueError(f"{env.lower()} must be one of {allowed}, got {value!r}")
+    return value
+
+
 def serving_layout(spec: ModelSpec, params: Dict[str, Any],
                    head_bits: Optional[int] = None,
-                   device: DeviceLike = None) -> Dict[str, Any]:
+                   device: DeviceLike = None,
+                   moe_layout: Optional[str] = None,
+                   nvfp4_layout: Optional[str] = None) -> Dict[str, Any]:
     """The params dict that :class:`ContinuousBatcher` serves, on ``device``.
 
     1. an optional quantized logits head (``head_bits``, per-channel int8:
        half the bytes of the tied bf16 table each step);
-    2. :func:`~quantizers_tpu_torch.models.transformer.fuse_for_decode`.
+    2. :func:`~quantizers_tpu_torch.models.transformer.fuse_for_decode`;
+    3. the MoE expert layout (``moe_layout``; ``None`` reads
+       ``QTPU_MOE_LAYOUT``, default ``"w8pc"``): ``"w8pc"`` requantizes the
+       expert stacks to the fused int8 per-channel layout
+       (:func:`~quantizers_tpu_torch.ops.linear.moe_w8pc_layout`) when the
+       int8 bytes fit the device, one layer at a time; ``"int8"`` keeps
+       exact NVFP4 numerics in the int8-doubled layout; ``"packed"`` keeps
+       the packed E2M1 experts;
+    4. the NVFP4 layout of the other linears (``nvfp4_layout``; ``None``
+       reads ``QTPU_NVFP4_LAYOUT``, else the capacity plan): ``"int8"``
+       (int8-doubled) or ``"packed"``
+       (:func:`~quantizers_tpu_torch.ops.linear.nvfp4_device_layout`).
 
-    The JAX package's TPU-only steps (the MoE int8 expert layout, the
-    signed-int4 and int8 relayouts) have no counterpart in this slice."""
-    params = tree_to(params, resolve_device(device))
+    On a CUDA device, steps 3 and 4 follow the capacity plan against the
+    device's memory (:func:`~quantizers_tpu_torch.ops.linear.nvfp4_capacity_plan`),
+    as the JAX package's do on a TPU. On the CPU no plan runs: the layouts
+    are those the arguments name, defaulting to the card's defaults
+    (w8pc experts, int8 NVFP4), so the CPU serves what the card serves.
+
+    A layer's expert stacks are dropped as soon as they are requantized:
+    when the caller keeps no other reference to ``params``, the packed and
+    the w8pc experts are not resident in full at the same time."""
+    from ..ops.linear import (
+        _nvfp4_layout_decision,
+        infer_expert_shards,
+        moe_w8pc_layout,
+        nvfp4_capacity_plan,
+        nvfp4_device_layout,
+    )
+
+    dev = resolve_device(device)
+    moe_layout = _layout_arg(moe_layout, "QTPU_MOE_LAYOUT", "w8pc", MOE_LAYOUTS)
+    nvfp4_layout = _layout_arg(nvfp4_layout, "QTPU_NVFP4_LAYOUT", None, NVFP4_LAYOUTS)
+    params = tree_to(params, dev)
     if head_bits:
         params = quantize_lm_head(spec, params, num_bits=head_bits)
-    return fuse_for_decode(spec, params)
+    params = fuse_for_decode(spec, params)
+    shards = infer_expert_shards(params)
+    int8_ok = True  # the card's default where no plan runs
+    if dev.type == "cuda":
+        int8_ok = nvfp4_capacity_plan(params, expert_shards=shards, device=dev)["int8_ok"]
+    if int8_ok and moe_layout == "w8pc":
+        layers = params["layers"]  # a list of fuse_for_decode's own
+        for i, layer in enumerate(layers):
+            layers[i] = moe_w8pc_layout(layer)
+    if nvfp4_layout is None:  # the legacy QTPU_KEEP_PACKED_NVFP4, else the plan
+        nvfp4_int8 = _nvfp4_layout_decision(params, int8_ok, shards)
+    else:
+        nvfp4_int8 = nvfp4_layout == "int8"
+    return nvfp4_device_layout(params, nvfp4_int8=nvfp4_int8,
+                               nvfp4_int8_experts=int8_ok and moe_layout != "packed")
 
 
 class ContinuousBatcher:
@@ -83,10 +141,13 @@ class ContinuousBatcher:
                  prefill_buckets: Sequence[int] = (32, 128, 512, 2048),
                  eos_ids: Sequence[int] = (),
                  head_bits: Optional[int] = None,
-                 device: DeviceLike = None) -> None:
+                 device: DeviceLike = None,
+                 moe_layout: Optional[str] = None,
+                 nvfp4_layout: Optional[str] = None) -> None:
         self.device = resolve_device(device)
         self.spec = spec
-        self.params = serving_layout(spec, params, head_bits=head_bits, device=self.device)
+        self.params = serving_layout(spec, params, head_bits=head_bits, device=self.device,
+                                     moe_layout=moe_layout, nvfp4_layout=nvfp4_layout)
         self.max_batch = max_batch
         self.max_len = max_len
         self.buckets = sorted(b for b in prefill_buckets if b <= max_len) or [max_len]

@@ -68,7 +68,16 @@ def test_entry_points_need_a_device_or_an_explicit_cpu(call):
 
 
 def test_moe_and_mla_specs_wait_for_their_slices():
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        init_params(ModelSpec.tiny(moe=True), device="cpu")
+    # MoE is ported (slice 4): a random MoE model initializes and runs
+    spec = ModelSpec.tiny(moe=True)
+    params = init_params(spec, device="cpu")
+    moe = params["layers"][0]["moe"]
+    assert moe["router"].weight.dtype == torch.float32
+    assert moe["gate_proj"].num_experts == spec.num_experts
+    out = generate(spec, params, [[1, 2, 3]], max_new_tokens=2, device="cpu")
+    assert out.shape == (1, 2)
+    # MLA waits for slice 5
     with pytest.raises(NotImplementedError, match="slice 5"):
         KVCache.init(ModelSpec.tiny(mla=True), 1, 8, device="cpu")
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        init_params(ModelSpec.tiny(mla=True), device="cpu")
