@@ -8,7 +8,8 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compile the CUDA kernels of ``quantizers_tpu_torch/csrc``;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes the serving paths give it, with timings beside the bound;
+   the shapes the serving and evaluation paths give it, with timings
+   beside the bound;
 4. serve, slice 1: a Qwen3-4B-shaped W4A16 model at full width and depth
    (random weights from a seeded generator), ``serving_layout(head_bits=8)``,
    an 8 x 128 prefill and 256 greedy decode steps, with the kernels'
@@ -27,19 +28,33 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    the same converted weights on both devices, prefill plus 15
    teacher-forced decode steps (path A: router choices compared too);
 8. batcher, slice 1: 12 requests at full width;
-9. one JSON line of per-kernel numbers, then the card's nvidia-smi line,
-   then the final ``{"ok": true, ...}`` line.
+9. path D (slice 3's main path), checkpoints in and perplexity out: a
+   Qwen3-4B-shaped W4A16 g32 checkpoint at full width and depth (random
+   weights from a seeded generator, quantized by the port and written with
+   its ``save_compressed_model`` into a temporary directory), evaluated by
+   ``cli/eval_ppl.main`` on the card over two (4, 2048) batches of a seeded
+   synthetic text, with exact launch counts (flash attention only);
+10. ``cli/serve.main`` on the same checkpoint: 8 prompts, int8 head;
+11. card against CPU, path D: the checkpoint at 2 layers, one (1, 512)
+    window scored on both devices (per-token NLL and perplexity);
+12. one JSON line of per-kernel numbers, then the card's nvidia-smi line,
+    then the final ``{"ok": true, ...}`` line.
 
 Longer per-shape numbers go to ``chiprun_out/chip_smoke_detail.json``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
+import logging
 import math
+import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -69,10 +84,15 @@ BF16_FLOPS = 989e12
 #: rows, whose values are small, are held as closely as the short ones; the
 #: kernel keeps its probabilities in f32 where the plain version rounds them
 #: to bf16 (at most 2^-9 of each term), which with the output's rounding
-#: stays under 1e-2, and the limit is twice that
+#: stays under 1e-2, and the limit is twice that. Flash attention: the same
+#: limit of each (b, h, t) row's own largest |value|, for the same reasons
+#: (a causal row averages ever more keys, so the late rows' values are
+#: small): the kernel rounds p to bf16 against a running max over 64-key
+#: tiles, the plain version over 256-key tiles (at most 2^-9 of each term
+#: apart), and each side rounds its output once
 RTOL = {"w4_matmul": 1e-2, "w8_matmul": 1e-2, "decode_attention": 2e-2,
         "nvfp4_matmul": 1e-2, "nvfp4_i8_matmul": 1e-2, "moe_slot_ffn": 1e-2,
-        "moe_slot_gu_ffn": 1e-2}
+        "moe_slot_gu_ffn": 1e-2, "flash_attention": 2e-2}
 #: card against CPU, logits: f32 sums in other orders and cuBLAS for prefill
 #: move a few bf16 roundings of the activations over two layers. Largest
 #: |err| within 2e-2 of the largest |logit| (2.5 bf16 ulps there), and each
@@ -1297,6 +1317,288 @@ def card_vs_cpu_moe(detail, devices=("cuda", "cpu")):
 
 
 # ---------------------------------------------------------------------------
+# slice 3: flash attention (phase 3's third part) and path D, checkpoints in
+# and perplexity out (phases 9-11)
+# ---------------------------------------------------------------------------
+
+#: (B, H, KV, T, d, dv, causal): the perplexity path's shape (timed), a
+#: single ragged tile, Qwen3-30B-A3B's heads (rep 8), a non-causal call and
+#: the MLA prefill's padded qk head
+FLASH_SHAPES = {"path_D": (4, 32, 8, 2048, 128, 128, True),
+                "ragged_T200": (1, 32, 8, 200, 128, 128, True),
+                "rep8": (2, 32, 4, 512, 128, 128, True),
+                "non_causal": (1, 8, 8, 256, 128, 128, False),
+                "mla_d256": (1, 16, 16, 512, 256, 128, True)}
+#: path D's eval: windows of 2048 at stride 1024 (later windows score their
+#: last 1024 tokens only), 4 windows a batch, 8 windows: two (4, 2048) batches
+EVAL_ARGS = ["--window", "2048", "--stride", "1024", "--batch-size", "4", "--max-windows", "8"]
+#: card against CPU, path D, per-token NLL: a token's NLL is the difference of
+#: the logsumexp of its logits and its target logit, each within the logit
+#: error of LOGIT_RTOL (2e-2 of the largest |logit|, 2.5 bf16 ulps there) of
+#: the CPU's; so |err| <= 2e-2 * max(1, |NLL|)
+NLL_RTOL = 2e-2
+#: and the perplexity, exp of the mean NLL: the per-token errors, of either
+#: sign, average out to well under the per-token limit; 1e-2 relative
+PPL_RTOL = 1e-2
+
+
+def check_flash(gen, label, shape, timed: bool) -> dict:
+    """K4 against its plain version at one shape, with q as the transformer
+    passes it (a transpose(1, 2) view); each (b, h, t) row is held to RTOL
+    of its own largest |value|."""
+    from quantizers_tpu_torch.ops import flash as FL
+
+    B, H, KV, T, d, dv, causal = shape
+    dev = gen.device
+
+    def inputs():
+        q = torch.randn((B, T, H, d), device=dev, generator=gen).bfloat16().transpose(1, 2)
+        k = torch.randn((B, KV, T, d), device=dev, generator=gen).bfloat16()
+        v = torch.randn((B, KV, T, dv), device=dev, generator=gen).bfloat16()
+        return q, k, v
+
+    q, k, v = inputs()
+    sm = 1.0 / math.sqrt(d)
+    got = FL.flash_attention(q, k, v, sm, causal)
+    ref = FL.flash_attention_plain(q, k, v, sm, causal)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), f"flash_attention {label}: non-finite output")
+    errs = (got.float() - ref.float()).abs().amax(dim=3)
+    tols = RTOL["flash_attention"] * ref.float().abs().amax(dim=3)
+    ratio = errs / tols
+    b, h, t = np.unravel_index(int(ratio.argmax()), tuple(ratio.shape))
+    err, tol = errs[b, h, t].item(), tols[b, h, t].item()
+    check(bool((ratio <= 1).all()),
+          f"flash_attention {label}: b={b} h={h} t={t}: max |err| {err:.4g} > tol {tol:.4g}")
+    check(torch.equal(FL.flash_attention(q, k, v, sm, causal), got),
+          f"flash_attention {label}: differs from run to run")
+    row = {"shape": dict(zip(("B", "H", "KV", "T", "d", "dv", "causal"), shape)),
+           "max_abs_err": err, "tol": tol, "worst_row": [int(b), int(h), int(t)],
+           "worst_ratio": ratio.max().item(), "largest_abs_err": errs.max().item()}
+    if not timed:
+        return row
+    src = rotating([(q, k, v), inputs()])  # 2 x 168 MB: past the 50 MB L2
+    before = FL.flash_attention.launches
+    row["ms"] = cuda_ms(lambda: FL.flash_attention(*src(), sm, causal))
+    FL.flash_attention.launches = before  # timing launches are not main-path launches
+    row["plain_ms"] = cuda_ms(lambda: FL.flash_attention_plain(*src(), sm, causal),
+                              iters=3, warmup=1)
+    row["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+        *src(), is_causal=causal, scale=sm, enable_gqa=True))
+    row["library"] = "torch.nn.functional.scaled_dot_product_attention(enable_gqa=True)"
+    pairs = T * (T + 1) // 2 if causal else T * T  # the (row, key) pairs this data needs
+    nbytes = 2 * (B * H * T * d + B * KV * T * (d + dv) + B * H * T * dv)
+    row.update(bound(nbytes, 2 * B * H * pairs * (d + dv)))
+    return row
+
+
+def flash_kernels(gen, detail) -> dict:
+    rows = {label: check_flash(gen, label, shape, timed=label == "path_D")
+            for label, shape in FLASH_SHAPES.items()}
+    for label, r in rows.items():
+        log(f"[kernels] flash_attention {label}: {r}")
+    detail["kernels"]["flash_attention"] = rows
+    return rows
+
+
+def write_checkpoint(spec, gen, out_dir) -> dict:
+    """A W4A16 g32 checkpoint of random weights (bf16, std 0.02, from the
+    seeded generator on the card) quantized by the port's
+    ``core.numerics.quantize`` and written by its ``save_compressed_model``."""
+    from quantizers_tpu_torch.core import PRESET_SCHEMES, quantize
+    from quantizers_tpu_torch.formats import CompressedParam, save_compressed_model
+
+    dev = gen.device
+    D, Ff, hd = spec.hidden_size, spec.intermediate_size, spec.head_dim
+    scheme = PRESET_SCHEMES["W4A16_G32"]
+    t0 = time.perf_counter()
+    plain = {"model.embed_tokens.weight":
+             (torch.randn((spec.vocab_size, D), device=dev, generator=gen) * 0.02).bfloat16(),
+             "model.norm.weight": torch.ones((D,), dtype=torch.bfloat16, device=dev)}
+    quant = {}
+    shapes = {"self_attn.q_proj": (spec.q_dim, D), "self_attn.k_proj": (spec.kv_dim, D),
+              "self_attn.v_proj": (spec.kv_dim, D), "self_attn.o_proj": (D, spec.q_dim),
+              "mlp.gate_proj": (Ff, D), "mlp.up_proj": (Ff, D), "mlp.down_proj": (D, Ff)}
+    for i in range(spec.num_layers):
+        p = f"model.layers.{i}"
+        for name, n in (("input_layernorm", D), ("post_attention_layernorm", D),
+                        ("self_attn.q_norm", hd), ("self_attn.k_norm", hd)):
+            plain[f"{p}.{name}.weight"] = torch.ones((n,), dtype=torch.bfloat16, device=dev)
+        for name, shape in shapes.items():
+            w = (torch.randn(shape, device=dev, generator=gen) * 0.02).bfloat16()
+            quant[f"{p}.{name}"] = CompressedParam(quantize(w, scheme.weights), scheme.weights)
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    save_compressed_model(out_dir, plain, quant, {"group_0": scheme}, ["lm_head"],
+                          base_config=spec.to_hf_config())
+    t_write = time.perf_counter() - t0
+    nbytes = sum(f.stat().st_size for f in Path(out_dir).iterdir())
+    return {"layers": spec.num_layers, "quantize_s": t_quant, "write_s": t_write,
+            "bytes": nbytes, "dir": str(out_dir)}
+
+
+def synthetic_text(n_chars: int = 12_000, seed: int = 5) -> str:
+    """Seeded words of lowercase letters; the byte tokenizer makes one token
+    of each character."""
+    rng = np.random.default_rng(seed)
+    words = []
+    while sum(len(w) + 1 for w in words) < n_chars:
+        words.append("".join(chr(97 + c) for c in rng.integers(0, 26, rng.integers(1, 9))))
+    return " ".join(words)[:n_chars]
+
+
+class Records(logging.Handler):
+    """The log records of one logger while active (the CLIs log their load
+    and run times there)."""
+
+    def __init__(self, name: str):
+        super().__init__()
+        self.logger, self.records = logging.getLogger(name), []
+
+    def emit(self, record):
+        self.records.append(record)
+
+    def __enter__(self):
+        self.logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self)
+        return False
+
+    def args(self, prefix: str):
+        return next(r.args for r in self.records if r.msg.startswith(prefix))
+
+
+def run_cli(main_fn, argv, logger_name: str):
+    """A CLI's ``main`` in-process: (exit code, stdout, log records)."""
+    out = io.StringIO()
+    with Records(logger_name) as rec, contextlib.redirect_stdout(out):
+        rc = main_fn(argv)
+    return rc, out.getvalue(), rec
+
+
+def eval_phase(gen, detail, tmp: Path):
+    """Path D (the main path of slice 3): write the full-depth checkpoint,
+    then ``cli/eval_ppl.main`` on the card over two (4, 2048) batches, every
+    launch count set to 0 just before it."""
+    from quantizers_tpu_torch.cli import eval_ppl
+    from quantizers_tpu_torch.models import ModelSpec
+    from quantizers_tpu_torch.ops import kernels as K
+
+    spec = ModelSpec(**GEOMETRY)
+    ckpt = tmp / "qwen3_4b_w4a16"
+    info = write_checkpoint(spec, gen, ckpt)
+    log(f"[path D] checkpoint: {info}")
+    text = tmp / "text.txt"
+    text.write_text(synthetic_text())
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    rc, out, rec = run_cli(eval_ppl.main, [str(ckpt), str(text), *EVAL_ARGS],
+                           "quantizers_tpu_torch.eval_ppl")
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[path D] eval_ppl: {out.strip()}; launches {counts}")
+    m = re.search(r"^ppl=(\S+) tokens=(\d+) windows=(\d+) eval_s=", out, re.M)
+    check(rc == 0 and m is not None, f"path D: eval_ppl printed no result line: {out!r}")
+    ppl, n_tok, n_win = float(m.group(1)), int(m.group(2)), int(m.group(3))
+    check(math.isfinite(ppl) and ppl > 1.0, f"path D: perplexity {ppl} is not finite")
+    # the CLI counts each window's mask, its unscored first position included
+    check(n_win == 8 and n_tok == 2048 + 7 * 1024, f"path D: {n_win} windows, {n_tok} tokens")
+    want = expect(flash_attention=spec.num_layers * 2)
+    check(counts == want, f"path D: eval launch counts {counts} != {want}")
+    load_s = rec.args("loaded")[1]
+    eval_s = rec.args("scored")[2]
+    # where one batch's time goes: a profiled (4, 2048) scoring call, after
+    # the counted run
+    from quantizers_tpu_torch.models import load_compressed_model
+    from quantizers_tpu_torch.serve.engine import token_logprobs
+
+    _, params = load_compressed_model(ckpt)
+    ids = torch.randint(0, spec.vocab_size, (4, 2048), device=gen.device, generator=gen)
+    token_logprobs(params, spec, ids)  # warm
+    prof = device_profile(lambda: token_logprobs(params, spec, ids), 1)
+    del params
+    res = {"checkpoint": info, "tmp_dir": str(tmp), "ppl": ppl, "tokens": n_tok,
+           "windows": n_win, "load_s": load_s, "eval_s": eval_s, "tok_s": n_tok / eval_s,
+           "peak_memory_gb": peak / 1e9, "launches": counts, "profile_one_batch": prof}
+    detail["path_D"] = res
+    log(f"[path D] {res}")
+    return spec, ckpt, text, counts
+
+
+def serve_cli_phase(ckpt, text, detail):
+    """``cli/serve.main`` on path D's checkpoint: 8 prompts through the
+    continuous batcher with the int8 head. Row prefills and decode steps run
+    K1 (w4) and K2; the head K3; prefills with a cache take the einsum
+    attention, as in the JAX package, so K4 never launches."""
+    from quantizers_tpu_torch.cli import serve
+    from quantizers_tpu_torch.ops import kernels as K
+
+    words = text.read_text().split()
+    argv = [str(ckpt), "--max-new-tokens", "32", "--max-batch", "8", "--max-len", "512",
+            "--head-bits", "8"]
+    for i in range(8):
+        argv += ["--prompt", " ".join(words[i * 7: i * 7 + 3 + 4 * i])]
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc, out, rec = run_cli(serve.main, argv, "quantizers_tpu_torch.serve")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = K.launch_counts()
+    rids = re.findall(r"^(\d+)\t", out, re.M)
+    log(f"[path D serve] {len(rids)} lines; launches {counts}")
+    check(rc == 0 and rids == [str(i) for i in range(8)],
+          f"path D serve: want one line per prompt, got rids {rids}")
+    served = ("w4_matmul", "decode_attention", "w8_matmul")
+    check(all(counts[k] > 0 for k in served) and counts == expect(**{k: counts[k] for k in served}),
+          f"path D serve: K1, K2 and K3 must launch, and nothing else: {counts}")
+    n_tok, gen_s = rec.args("generated")[0], rec.args("generated")[2]
+    detail["path_D_serve"] = {"prompts": 8, "tokens": n_tok, "load_s": rec.args("loaded")[1],
+                              "generate_s": gen_s, "total_s": dt, "launches": counts}
+    log(f"[path D serve] {detail['path_D_serve']}")
+
+
+def card_vs_cpu_ppl(gen, detail, tmp: Path, text: Path, devices=("cuda", "cpu")):
+    """Path D at 2 layers, full width: one checkpoint, loaded on the card
+    and on the CPU, one (1, 512) window scored on each (the card's flash and
+    w4 kernels against the CPU's plain versions): per-token NLL and
+    perplexity."""
+    from quantizers_tpu_torch.data import ByteTokenizer
+    from quantizers_tpu_torch.models import ModelSpec, load_compressed_model
+    from quantizers_tpu_torch.serve import perplexity
+    from quantizers_tpu_torch.serve.engine import token_logprobs
+
+    spec = ModelSpec(**dict(GEOMETRY, num_layers=2))
+    ckpt = tmp / "qwen3_4b_w4a16_2layers"
+    write_checkpoint(spec, gen, ckpt)
+    ids = np.asarray(ByteTokenizer()(text.read_text())["input_ids"][:512], np.int32)[None]
+    batch = [(ids, np.ones(ids.shape, np.float32))]
+    nll, ppl = {}, {}
+    for dev in devices:
+        t0 = time.perf_counter()
+        _, params = load_compressed_model(ckpt, device=dev)
+        nll[dev] = -token_logprobs(params, spec, torch.as_tensor(ids, device=dev).long()).cpu()
+        ppl[dev] = perplexity(spec, params, batch, device=dev)
+        log(f"[card-vs-cpu path D] {dev}: {time.perf_counter() - t0:.1f} s")
+        del params
+    got, ref = (nll[d] for d in devices)
+    check(bool(torch.isfinite(got).all()), "card vs CPU path D: NLL not finite")
+    ratio = ((got - ref).abs() / (NLL_RTOL * ref.abs().clamp(min=1.0))).max().item()
+    ppl_err = abs(ppl[devices[0]] - ppl[devices[1]]) / ppl[devices[1]]
+    detail["card_vs_cpu_ppl"] = {
+        "layers": 2, "window": list(ids.shape), "max_abs_nll_err": (got - ref).abs().max().item(),
+        "mean_nll": ref.mean().item(), "worst_err_over_tol": ratio, "nll_rtol": NLL_RTOL,
+        "ppl": {d: ppl[d] for d in devices}, "ppl_rel_err": ppl_err, "ppl_rtol": PPL_RTOL}
+    log(f"[card-vs-cpu path D] {detail['card_vs_cpu_ppl']}")
+    check(ratio <= 1, f"card vs CPU path D: per-token NLL error {ratio:.3g} x its limit")
+    check(ppl_err <= PPL_RTOL, f"card vs CPU path D: perplexity {ppl} differ by {ppl_err:.3g}")
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     # the port is imported inside the phases, so that a copy of this script
@@ -1355,6 +1657,7 @@ def main() -> int:
     log(f"[kernels] decode_attention: {attn}")
     detail["kernels"] = {"w4_matmul": w4_rows, "w8_matmul": w8_rows, "decode_attention": attn}
     s2 = slice2_kernels(gen, detail)
+    fl = flash_kernels(gen, detail)
 
     # phase 4: serve, slice 1
     spec, raw, counts = serve_phase(gen, detail)
@@ -1376,8 +1679,17 @@ def main() -> int:
     # phase 8: batcher, slice 1
     batcher_phase(spec, raw, gen, detail)
     del raw
+    torch.cuda.empty_cache()
 
-    # phase 9: the kernels line (w4 and the NVFP4 matmuls: the four calls of
+    # phases 9-11: path D (slice 3's main path), its serve run, card against
+    # CPU; the checkpoints live in a temporary directory, removed at the end
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        _, ckpt, text, counts_d = eval_phase(gen, detail, Path(tmp))
+        serve_cli_phase(ckpt, text, detail)
+        torch.cuda.empty_cache()
+        card_vs_cpu_ppl(gen, detail, Path(tmp), text)
+
+    # phase 12: the kernels line (w4 and the NVFP4 matmuls: the four calls of
     # one decoder layer at m = 8, summed)
     timed4 = [w4_rows[f"{lbl}@m8"] for lbl in w4_shapes]
 
@@ -1436,6 +1748,11 @@ def main() -> int:
          "launches": counts_moe["moe_slot_gu_ffn"], "path": "A decode",
          **worst(s2["moe_slot_gu_ffn"]),
          **{key: s2["moe_slot_gu_ffn"]["w8pc"][key]
+            for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
+        {"name": "flash_attention", "route": "cuda", "source": src + "flash_attention.cu",
+         "replaces": "quantizers_tpu/ops/flash.py:86",
+         "launches": counts_d["flash_attention"], "path": "D eval", **worst(fl),
+         **{key: fl["path_D"][key]
             for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
     ]
     check(all(k["launches"] > 0 for k in kernels_line), "a kernel never launched on its path")

@@ -12,3 +12,4 @@ from .transformer import (  # noqa: F401
     logits_head,
     quantize_lm_head,
 )
+from .loader import load_compressed_model, load_hf_model  # noqa: F401

@@ -12,6 +12,8 @@ accumulation in every product.
 Unlike the JAX package, the KV cache is updated in place: prefill and the
 decode kernel write into the caller's buffers and advance ``length``.
 Clone a cache (:meth:`KVCache.clone`) to replay a decode from one start.
+A forward without a cache attends through the flash kernel
+(:mod:`~quantizers_tpu_torch.ops.flash`) where the JAX package does.
 MLA models wait for their port slice.
 """
 
@@ -139,7 +141,7 @@ def attention(layer: Dict[str, Any], spec: ModelSpec, x: torch.Tensor,
               positions: torch.Tensor, cache: Optional[KVCache]
               ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """x (B, T, D) post-layernorm -> (attn_out (B, T, D), cache)."""
-    from ..ops import kernels
+    from ..ops import flash, kernels
 
     B, T, _ = x.shape
     H, KV, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
@@ -173,6 +175,14 @@ def attention(layer: Dict[str, Any], spec: ModelSpec, x: torch.Tensor,
         return layer["o_proj"].apply(ctx4.reshape(B, 1, H * hd)), cache
 
     k_att, v_att, mask, cache = _cache_and_mask(cache, k, v, positions, x.dtype)
+    if cache is None and T > 1:
+        # the no-cache forward (perplexity, calibration): blockwise flash
+        # attention keeps memory linear in T, where the JAX package's tiling
+        # takes the shape; the einsum below for the rest
+        qh = q.transpose(1, 2)
+        if flash.flash_reason(qh, k_att, v_att) is None:
+            ctx = flash.flash_attention(qh, k_att, v_att, sm_scale)
+            return layer["o_proj"].apply(ctx.transpose(1, 2).reshape(B, T, H * hd)), None
     # GQA without repeating KV: fold the head group into the query side
     qg = q.reshape(B, T, KV, rep, hd)
     scores = torch.einsum("btkrd,bksd->bkrts", qg.float(), k_att.float()) * sm_scale

@@ -25,12 +25,13 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_kernels_build"
 SOURCES = ("w4_matmul.cu", "w8_matmul.cu", "decode_attention.cu", "nvfp4_matmul.cu",
-           "moe_slot_ffn.cu", "moe_slot_gu_ffn.cu")
+           "moe_slot_ffn.cu", "moe_slot_gu_ffn.cu", "flash_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 #: C entry point -> argument types (pointers and the stream are c_void_p)
 SIGNATURES = {
     # x, packed, scale, out, M, K, N, g, stream
@@ -48,6 +49,10 @@ SIGNATURES = {
     "qtt_moe_slot_ffn": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, idx, gate|up w/s, down w/s, a workspace, out, S, D, F, E, stream
     "qtt_moe_slot_gu_ffn": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # q, k, v, o, (b, head, row) element strides of each, B, H, KV, T, S, d, dv,
+    # sm_scale, causal, stream
+    "qtt_flash_attention": (_P, _P, _P, _P, *(_L,) * 12, _I, _I, _I, _I, _I, _I, _I,
+                            ctypes.c_float, _I, _P),
 }
 
 

@@ -20,7 +20,10 @@ current stream and raises if the launch fails. It adds one to its
   routed expert slots over packed w4, packed E2M1 or int8-doubled E2M1
   stacks);
 * :func:`moe_slot_gu_ffn` replaces ``_moe_slot_gu_call`` (the same over
-  the fused int8 per-channel gate|up layout).
+  the fused int8 per-channel gate|up layout);
+* :func:`~quantizers_tpu_torch.ops.flash.flash_attention` (module
+  :mod:`.flash`) replaces ``quantizers_tpu/ops/flash.py`` ``_flash_call``
+  (blockwise attention of the no-cache forward).
 
 Importing this module needs neither ``nvcc`` nor a card: the library is
 built at the first launch.
@@ -34,23 +37,13 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from ._launch import KernelUnsupported, _count, _stream
+from .flash import flash_attention
 from .linear import QuantLinear, _unpack_fp4, _unpack_nibbles
-
-
-class KernelUnsupported(Exception):
-    """A layout or shape that the kernel does not take; the dispatcher
-    checks :func:`supports` first and routes such layers to the reference
-    path."""
-
 
 #: head dim and largest query-group size the decode-attention kernel is built for
 DECODE_HEAD_DIM = 128
 DECODE_MAX_REP = 8
-
-
-def _count(fn: Callable) -> Callable:
-    fn.launches = 0
-    return fn
 
 
 def _flatten_x(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, Tuple[int, ...]]:
@@ -65,10 +58,6 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: the kernel takes contiguous tensors")
-
-
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
 
 
 # ---------------------------------------------------------------------------
@@ -489,7 +478,7 @@ def moe_slot_gu_ffn(x: torch.Tensor, idx: torch.Tensor, gu_el, down_el) -> torch
 
 
 ALL_KERNELS = (w4_matmul, w8_matmul, decode_attention, nvfp4_matmul, nvfp4_i8_matmul,
-               moe_slot_ffn, moe_slot_gu_ffn)
+               moe_slot_ffn, moe_slot_gu_ffn, flash_attention)
 
 
 def reset_launch_counts() -> None:

@@ -225,12 +225,26 @@ def dense_linear(weight_nk: Any, bias: Optional[Any] = None, device=None,
     return QuantLinear(kind="dense", weight=w, bias=b, meta=(("k", k), ("n", n)))
 
 
+def _act_meta(act_args: Optional[QuantizationArgs]) -> Tuple[Tuple[str, Any], ...]:
+    """The meta entry recording a scheme's input-activation quantization,
+    where the JAX package records one: dynamic per-token symmetric INT8 (the
+    W8A8 preset). Its compute path is not ported yet, so :func:`quant_matmul`
+    refuses such a linear rather than serving it as W8A16."""
+    if (act_args is not None and act_args.dynamic and act_args.symmetric
+            and act_args.type == QuantType.INT and act_args.num_bits == 8
+            and act_args.strategy == QuantStrategy.TOKEN):
+        return (("act", "token_i8"),)
+    return ()
+
+
 def from_quantized(qt: QuantizedTensor, args: QuantizationArgs,
-                   bias: Optional[Any] = None) -> QuantLinear:
+                   bias: Optional[Any] = None,
+                   act_args: Optional[QuantizationArgs] = None) -> QuantLinear:
     """Build the at-rest layout from a :class:`QuantizedTensor` whose values
     are in the HF (N, K) orientation, with bf16 scales. The relayout runs
-    on the values' device. (The W8A8 activation meta of the JAX package
-    waits for its compute path, ROADMAP queue 1 item 13.)"""
+    on the values' device. ``act_args`` (the scheme's input activations) is
+    recorded in a per-channel w8 linear's meta as the JAX package does
+    (:func:`_act_meta`)."""
     n, k = qt.shape
     values = qt.values
     dev = values.device
@@ -252,7 +266,7 @@ def from_quantized(qt: QuantizedTensor, args: QuantizationArgs,
             meta = (("k", k), ("n", n), ("group_size", int(args.group_size)))
             scale_t = scale.t()
         else:  # channel: (N, 1) -> (1, N)
-            meta = (("k", k), ("n", n), ("group_size", None))
+            meta = (("k", k), ("n", n), ("group_size", None)) + _act_meta(act_args)
             scale_t = scale.reshape(n, -1).t()
         zp = None
         if qt.zero_point is not None:
@@ -267,7 +281,9 @@ def from_quantized(qt: QuantizedTensor, args: QuantizationArgs,
         # into per-group effective scales
         packed = _pack_split_half(_fp4_encode(values.t()))
         gsc = float(qt.global_scale) if qt.global_scale is not None else 1.0
-        eff = (scale / gsc).t()  # (K/16, N)
+        # a true division on every device (CUDA multiplies by the reciprocal
+        # of a Python scalar divisor), so that the card builds the CPU's scales
+        eff = (scale / torch.full_like(scale, gsc)).t()  # (K/16, N)
         return QuantLinear(
             kind="nvfp4", weight=packed, scale=eff.to(torch.bfloat16).contiguous(), bias=b,
             meta=(("k", k), ("n", n), ("group_size", int(args.group_size or 16))))

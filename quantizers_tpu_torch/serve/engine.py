@@ -3,7 +3,9 @@
 Counterpart of ``quantizers_tpu/serve/engine.py`` (``lax.scan`` becomes a
 loop). The caches are updated in place, so the loop keeps the same device
 buffers from the first step to the last: any caller that replays a decode
-from one starting state clones the caches first.
+from one starting state clones the caches first. :func:`perplexity`, the
+quality metric of ``cli/eval_ppl.py``, scores windows with a no-cache
+forward, whose attention runs through the flash kernel.
 """
 
 from __future__ import annotations
@@ -81,3 +83,45 @@ def generate(spec: ModelSpec, params: Dict[str, Any], prompt_ids: Any,
                                temperature=float(temperature), top_k=int(top_k))
         toks = torch.cat([toks, rest], dim=1)
     return toks.to(torch.int32).cpu().numpy()
+
+
+#: rows of the f32 log-softmax taken at a time in :func:`_nll`
+_NLL_ROWS = 1024
+
+
+@torch.no_grad()
+def token_logprobs(params: Dict[str, Any], spec: ModelSpec, ids: torch.Tensor) -> torch.Tensor:
+    """(B, T) ids -> (B, T - 1) f32 log-probabilities of the next tokens
+    ``ids[:, 1:]`` under a no-cache forward: the f32 ``log_softmax`` of
+    ``logits[:, :-1]``, taken over ``_NLL_ROWS`` positions at a time, which
+    bounds its f32 transient (each row's values are those of one full call)."""
+    logits, _ = forward(params, spec, ids)
+    B, T, V = logits.shape
+    lg = logits[:, :-1].reshape(-1, V)
+    tgt = ids[:, 1:].reshape(-1, 1).long()
+    return torch.cat([
+        torch.gather(torch.log_softmax(lg[i:i + _NLL_ROWS].float(), dim=-1), -1,
+                     tgt[i:i + _NLL_ROWS])[:, 0]
+        for i in range(0, lg.shape[0], _NLL_ROWS)]).reshape(B, T - 1)
+
+
+def _nll(params: Dict[str, Any], spec: ModelSpec, ids: torch.Tensor,
+         mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The masked next-token NLL sum of one (B, T) batch and its token count
+    (0-d f32 tensors), weighted by ``mask[:, 1:]``."""
+    m = mask[:, 1:].float()
+    return -(token_logprobs(params, spec, ids) * m).sum(), m.sum()
+
+
+def perplexity(spec: ModelSpec, params: Dict[str, Any], batches,
+               device: DeviceLike = None) -> float:
+    """Masked next-token perplexity over numpy ``(ids, mask)`` batches."""
+    dev = resolve_device(device)
+    params = tree_to(params, dev)
+    total, count = 0.0, 0.0
+    for ids, mask in batches:
+        nll, n = _nll(params, spec, torch.as_tensor(np.asarray(ids), dtype=torch.long, device=dev),
+                      torch.as_tensor(np.asarray(mask), device=dev))
+        total += float(nll)
+        count += float(n)
+    return float(np.exp(total / max(count, 1.0)))

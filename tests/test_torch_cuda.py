@@ -11,8 +11,11 @@ attention 2e-2 of each (row, KV head)'s own largest |value| (f32 against
 bf16-rounded probabilities), so that long rows, whose values are small,
 are held as closely as short ones; for the slot FFNs 1e-2 of each slot
 row's largest |value| (f32 outputs; a, rounded to bf16 on both sides, may
-round the other way after sums in another order). The matmul and slot
-kernels sum in a fixed order, so a second call gives the same bits.
+round the other way after sums in another order); for flash attention 2e-2
+of each (b, h, t) row's largest |value| (p rounded to bf16 against a running
+max over 64-key tiles in the kernel, 256-key tiles in the plain version).
+The matmul, slot and flash kernels sum in a fixed order, so a second call
+gives the same bits.
 """
 
 import math
@@ -150,6 +153,49 @@ def test_moe_slot_ffn_matches_plain(gen, kind, layout, g, S, D, F, E):
     assert K.moe_slot_ffn.launches == before + 1
     _close_rows(got, K.moe_slot_ffn_plain(x, idx, *els), 1e-2)
     assert torch.equal(K.moe_slot_ffn(x, idx, *els), got)
+
+
+#: (B, H, KV, T, d, dv, causal): the perplexity path's shape, a single
+#: ragged tile, Qwen3-30B-A3B's heads (rep 8), a non-causal call, and the
+#: MLA prefill's padded qk head
+FLASH_SHAPES = [(4, 32, 8, 2048, 128, 128, True), (1, 32, 8, 200, 128, 128, True),
+                (2, 32, 4, 512, 128, 128, True), (1, 8, 8, 256, 128, 128, False),
+                (1, 16, 16, 512, 256, 128, True)]
+
+
+@pytest.mark.parametrize("B,H,KV,T,d,dv,causal", FLASH_SHAPES)
+def test_flash_attention_matches_plain(gen, B, H, KV, T, d, dv, causal):
+    from quantizers_tpu_torch.ops.flash import flash_attention, flash_attention_plain
+
+    # q as the transformer passes it: a transpose(1, 2) view of (B, T, H, d)
+    q = torch.randn((B, T, H, d), device="cuda", generator=gen).bfloat16().transpose(1, 2)
+    k = torch.randn((B, KV, T, d), device="cuda", generator=gen).bfloat16()
+    v = torch.randn((B, KV, T, dv), device="cuda", generator=gen).bfloat16()
+    sm = 1 / math.sqrt(d)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, sm, causal)
+    assert flash_attention.launches == before + 1 and got.shape == (B, H, T, dv)
+    ref = flash_attention_plain(q, k, v, sm, causal)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    # each (b, h, t) row against its own largest |value|, so that the long
+    # causal rows, whose values are small, are held as closely as the short
+    # ones: the kernel rounds p to bf16 against a running max over 64-key
+    # tiles, the plain version over 256-key tiles (at most 2^-9 of each term
+    # apart), and each side rounds its output once
+    err = (got.float() - ref.float()).abs().amax(dim=3)
+    assert (err <= 2e-2 * ref.float().abs().amax(dim=3)).all(), err.amax()
+    assert torch.equal(flash_attention(q, k, v, sm, causal), got)
+
+
+def test_flash_attention_refuses_other_head_dims(gen):
+    from quantizers_tpu_torch.ops.flash import flash_attention
+
+    q = torch.zeros((1, 2, 64, 384), dtype=torch.bfloat16, device="cuda")
+    before = flash_attention.launches
+    with pytest.raises(K.KernelUnsupported, match="built for"):
+        flash_attention(q, q, q[..., :128], 0.05)
+    assert flash_attention.launches == before
 
 
 @pytest.mark.parametrize("S,D,F,E", [(64, 2048, 768, 128), (8, 256, 128, 4)])
