@@ -9,7 +9,7 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
 2. build: compile the CUDA kernels of ``quantizers_tpu_torch/csrc``;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the serving and evaluation paths give it, with timings
-   beside the bound;
+   beside the bound (the fp8 matmul and MLA decode kernels at path E's);
 4. serve, slice 1: a Qwen3-4B-shaped W4A16 model at full width and depth
    (random weights from a seeded generator), ``serving_layout(head_bits=8)``,
    an 8 x 128 prefill and 256 greedy decode steps, with the kernels'
@@ -37,7 +37,18 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
 10. ``cli/serve.main`` on the same checkpoint: 8 prompts, int8 head;
 11. card against CPU, path D: the checkpoint at 2 layers, one (1, 512)
     window scored on both devices (per-token NLL and perplexity);
-12. one JSON line of per-kernel numbers, then the card's nvidia-smi line,
+12. path E (slice 5's main path), FP8_BLOCK MLA serving: DeepSeek-V2-Lite
+    attention with a dense 8192-wide MLP at full width and all 27 layers
+    (random bf16 weights from a seeded generator, quantized to FP8_BLOCK by
+    the port), ``serving_layout(head_bits=8)`` (fp8 resident), an 8 x 128
+    prefill and 128 greedy steps with exact per-step launch counts (the fp8
+    matmul and the MLA decode kernel), the fraction of the bytes bound and
+    a profiled window;
+13. 12 requests through ``ContinuousBatcher`` on path E's params;
+14. card against CPU, path E at 2 layers, full width: logits and greedy
+    tokens with the bf16 latent cache and with the fp8 one, and one
+    no-cache perplexity window (the flash kernel at head dim 256);
+15. one JSON line of per-kernel numbers, then the card's nvidia-smi line,
     then the final ``{"ok": true, ...}`` line.
 
 Longer per-shape numbers go to ``chiprun_out/chip_smoke_detail.json``.
@@ -89,10 +100,14 @@ BF16_FLOPS = 989e12
 #: (a causal row averages ever more keys, so the late rows' values are
 #: small): the kernel rounds p to bf16 against a running max over 64-key
 #: tiles, the plain version over 256-key tiles (at most 2^-9 of each term
-#: apart), and each side rounds its output once
+#: apart), and each side rounds its output once. The fp8 matmul: as the
+#: other matmuls. MLA decode attention: each (row, head) against its own
+#: largest |value|, as decode attention (both sides round p to bf16, after
+#: f32 sums in other orders)
 RTOL = {"w4_matmul": 1e-2, "w8_matmul": 1e-2, "decode_attention": 2e-2,
         "nvfp4_matmul": 1e-2, "nvfp4_i8_matmul": 1e-2, "moe_slot_ffn": 1e-2,
-        "moe_slot_gu_ffn": 1e-2, "flash_attention": 2e-2}
+        "moe_slot_gu_ffn": 1e-2, "flash_attention": 2e-2, "fp8_matmul": 1e-2,
+        "mla_decode_attention": 2e-2}
 #: card against CPU, logits: f32 sums in other orders and cuBLAS for prefill
 #: move a few bf16 roundings of the activations over two layers. Largest
 #: |err| within 2e-2 of the largest |logit| (2.5 bf16 ulps there), and each
@@ -198,6 +213,26 @@ def matmul_bytes(lin, m: int) -> int:
     return m * k * 2 + payload + scales + m * n * 2
 
 
+def time_matmul(wrapper, plain_fn, x, lin, row: dict) -> dict:
+    """Kernel, plain and library times of ``x @ W^T`` (the library call is
+    ``torch.matmul`` on the pre-dequantized bf16 weight), the weights
+    rotated through copies past the L2, and the bound, into ``row``.
+    ``plain_fn(x, lin)`` is the kernel's plain version."""
+    m, k, n = x.shape[0], lin.in_features, lin.out_features
+    nbytes = matmul_bytes(lin, m)
+    copies = [lin] + [dataclasses.replace(lin, weight=lin.weight.clone(), scale=lin.scale.clone())
+                      for _ in range(copies_for(nbytes) - 1)]
+    wsrc = rotating(copies)
+    dsrc = rotating([c.dequantize(torch.bfloat16) for c in copies[:2]])
+    before = wrapper.launches
+    row["ms"] = cuda_ms(lambda: wrapper(x, wsrc()))
+    wrapper.launches = before  # timing launches are not main-path launches
+    row["plain_ms"] = cuda_ms(lambda: plain_fn(x, wsrc()), iters=5, warmup=1)
+    row["library_ms"] = cuda_ms(lambda: torch.matmul(x, dsrc()))
+    row.update(bound(nbytes, 2 * m * k * n))
+    return row
+
+
 def check_matmul(name, kernel, plain_fn, gen, k, n, m, g, timed: bool,
                  scale_dtype=torch.bfloat16):
     lin = (w4_linear(gen, k, n, g, random_scale=True) if name == "w4_matmul"
@@ -213,23 +248,7 @@ def check_matmul(name, kernel, plain_fn, gen, k, n, m, g, timed: bool,
     check(err <= tol, f"{name} {m}x{k}x{n}: max |err| {err:.4g} > tol {tol:.4g}")
     check(torch.equal(kernel(x, lin), got), f"{name} {m}x{k}x{n}: differs from run to run")
     row = {"m": m, "k": k, "n": n, "g": g, "max_abs_err": err, "tol": tol}
-    if not timed:
-        return row
-    nbytes = matmul_bytes(lin, m)
-    copies = [lin] + [
-        type(lin)(kind=lin.kind, weight=lin.weight.clone(), scale=lin.scale.clone(),
-                  meta=lin.meta) for _ in range(copies_for(nbytes) - 1)]
-    wsrc = rotating(copies)
-    wdense = [c.dequantize(torch.bfloat16) for c in copies[:2]]
-    dsrc = rotating(wdense)
-    before = kernel.launches
-    row["ms"] = cuda_ms(lambda: kernel(x, wsrc()))
-    kernel.launches = before  # timing launches are not main-path launches
-    row["plain_ms"] = cuda_ms(lambda: plain_fn(x, wsrc()), iters=5, warmup=1)
-    row["library_ms"] = cuda_ms(lambda: torch.matmul(x, dsrc()))
-    row.update(bound(nbytes, 2 * m * k * n))
-    del wdense
-    return row
+    return time_matmul(kernel, plain_fn, x, lin, row) if timed else row
 
 
 def check_decode_attention(gen, timed: bool):
@@ -368,7 +387,7 @@ def step_bytes(spec, params, tied: bool) -> dict:
     return {"weights": layers + head, "kv_full": full_kv, "kv_valid": int(row_kv * mean_valid)}
 
 
-def time_decode(spec, params, caches0, first, label):
+def time_decode(spec, params, caches0, first, label, steps: int = STEPS):
     from quantizers_tpu_torch.serve.engine import _decode_scan
 
     warm = [c.clone() for c in caches0]
@@ -377,12 +396,12 @@ def time_decode(spec, params, caches0, first, label):
     caches = [c.clone() for c in caches0]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    toks, _ = _decode_scan(params, spec, caches, first, None, steps=STEPS,
+    toks, _ = _decode_scan(params, spec, caches, first, None, steps=steps,
                            temperature=0.0, top_k=0)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    log(f"[serve:{label}] {STEPS} steps x batch {BATCH}: {dt:.3f} s, "
-        f"{dt / STEPS * 1e3:.3f} ms/step, {BATCH * STEPS / dt:.1f} tok/s")
+    log(f"[serve:{label}] {steps} steps x batch {BATCH}: {dt:.3f} s, "
+        f"{dt / steps * 1e3:.3f} ms/step, {BATCH * steps / dt:.1f} tok/s")
     return toks, dt
 
 
@@ -528,6 +547,33 @@ def serve_phase(gen, detail):
 # phase 7: card against CPU through the same converted weights
 # ---------------------------------------------------------------------------
 
+def logits_agree(label: str, got: torch.Tensor, ref: torch.Tensor) -> dict:
+    """The card's logits against the CPU's: largest |err| within LOGIT_RTOL
+    of the largest |logit|, each position's error norm within
+    LOGIT_NORM_RTOL, the same greedy token except where the CPU's top two
+    logits are a near-tie (the top one's bf16 ulp is
+    2^(floor(log2 |top|) - 7))."""
+    check(bool(torch.isfinite(got).all()), f"{label}: card logits not finite")
+    err = (got - ref).abs().max().item()
+    tol = LOGIT_RTOL * ref.abs().max().item()
+    norm_err = ((got - ref).norm(dim=-1) / ref.norm(dim=-1)).max().item()
+    top2 = ref.topk(2, dim=-1).values
+    ulp = torch.exp2(torch.floor(torch.log2(top2[..., 0].abs())) - 7)
+    tie = (top2[..., 0] - top2[..., 1]) <= TIE_ULPS * ulp
+    agree = got.argmax(-1) == ref.argmax(-1)
+    row = {"max_abs_err": err, "tol": tol, "max_abs_logit": ref.abs().max().item(),
+           "max_rel_norm_err": norm_err, "rel_norm_tol": LOGIT_NORM_RTOL,
+           "positions": agree.numel(), "argmax_agreement": agree.float().mean().item(),
+           "near_ties": int(tie.sum())}
+    log(f"[{label}] {row}")
+    check(err <= tol, f"{label}: max |err| {err:.4g} > tol {tol:.4g}")
+    check(norm_err <= LOGIT_NORM_RTOL,
+          f"{label}: relative error norm {norm_err:.4g} > {LOGIT_NORM_RTOL}")
+    check(bool((agree | tie).all()), f"{label}: greedy token differs at "
+          f"{int((~agree & ~tie).sum())} positions that are no near-tie")
+    return row
+
+
 def card_vs_cpu(detail, devices=("cuda", "cpu")):
     from quantizers_tpu_torch.convert import params_from_numpy
     from quantizers_tpu_torch.models import KVCache, ModelSpec, forward
@@ -585,28 +631,8 @@ def card_vs_cpu(detail, devices=("cuda", "cpu")):
         log(f"[card-vs-cpu] {dev}: {time.perf_counter() - t0:.1f} s")
         del p, caches
     got, ref = (out[d] for d in devices)
-    check(bool(torch.isfinite(got).all()), "card logits not finite")
-    err = (got - ref).abs().max().item()
-    tol = LOGIT_RTOL * ref.abs().max().item()
-    norm_err = ((got - ref).norm(dim=-1) / ref.norm(dim=-1)).max().item()
-    # positions where the CPU's top two logits are a near-tie: the top one's
-    # bf16 ulp is 2^(floor(log2 |top|) - 7)
-    top2 = ref.topk(2, dim=-1).values
-    ulp = torch.exp2(torch.floor(torch.log2(top2[..., 0].abs())) - 7)
-    tie = (top2[..., 0] - top2[..., 1]) <= TIE_ULPS * ulp
-    agree = got.argmax(-1) == ref.argmax(-1)
-    detail["card_vs_cpu"] = {
-        "layers": 2, "prefill": [B, T], "decode_steps": n_dec - 1, "max_abs_err": err,
-        "tol": tol, "max_abs_logit": ref.abs().max().item(), "max_rel_norm_err": norm_err,
-        "rel_norm_tol": LOGIT_NORM_RTOL, "positions": agree.numel(),
-        "argmax_agreement": agree.float().mean().item(), "near_ties": int(tie.sum())}
-    log(f"[card-vs-cpu] {detail['card_vs_cpu']}")
-    check(err <= tol, f"card vs CPU logits: max |err| {err:.4g} > tol {tol:.4g}")
-    check(norm_err <= LOGIT_NORM_RTOL,
-          f"card vs CPU logits: relative error norm {norm_err:.4g} > {LOGIT_NORM_RTOL}")
-    check(bool((agree | tie).all()),
-          f"card vs CPU: greedy token differs at {int((~agree & ~tie).sum())} positions "
-          f"that are no near-tie")
+    detail["card_vs_cpu"] = {"layers": 2, "prefill": [B, T], "decode_steps": n_dec - 1,
+                             **logits_agree("card-vs-cpu", got, ref)}
 
 
 # ---------------------------------------------------------------------------
@@ -708,23 +734,8 @@ def check_nvfp4(gen, k: int, n: int, m: int, layout: str, timed: bool) -> dict:
     row = {"m": m, "k": k, "n": n, "max_abs_err": err, "tol": tol}
     if not timed:
         return row
-    nbytes = matmul_bytes(lin, m)
-    copies = [lin] + [dataclasses.replace(lin, weight=lin.weight.clone(), scale=lin.scale.clone())
-                      for _ in range(copies_for(nbytes) - 1)]
-    wsrc = rotating(copies)
-    dsrc = rotating([c.dequantize(torch.bfloat16) for c in copies[:2]])
-
-    def plain():
-        c = wsrc()
-        return K.nvfp4_matmul_plain(x, c.weight, c.scale, NVFP4_G)
-
-    before = wrapper.launches
-    row["ms"] = cuda_ms(lambda: wrapper(x, wsrc()))
-    wrapper.launches = before  # timing launches are not main-path launches
-    row["plain_ms"] = cuda_ms(plain, iters=5, warmup=1)
-    row["library_ms"] = cuda_ms(lambda: torch.matmul(x, dsrc()))
-    row.update(bound(nbytes, 2 * m * k * n))
-    return row
+    return time_matmul(wrapper, lambda x, c: K.nvfp4_matmul_plain(x, c.weight, c.scale, NVFP4_G),
+                       x, lin, row)
 
 
 def moe_stacks(gen, payload: str, E: int, D: int, Fe: int, damp: float = 1.0):
@@ -1290,30 +1301,11 @@ def card_vs_cpu_moe(detail, devices=("cuda", "cpu")):
                 check(tie, f"card vs CPU moe: router choice differs at row {b} position {t} "
                            f"(call {c}), where the CPU's gap {float(pk[n] - pk1[n]):.3g} is no "
                            f"near-tie")
-    check(bool(torch.isfinite(got).all()), "card vs CPU moe: card logits not finite")
-    g, r = got, ref
-    err = (g - r).abs().max().item()
-    tol = LOGIT_RTOL * r.abs().max().item()
-    norm_err = ((g - r).norm(dim=-1) / r.norm(dim=-1)).max().item()
-    top2 = r.topk(2, dim=-1).values
-    ulp = torch.exp2(torch.floor(torch.log2(top2[..., 0].abs())) - 7)
-    tie = (top2[..., 0] - top2[..., 1]) <= TIE_ULPS * ulp
-    agree = g.argmax(-1) == r.argmax(-1)
     detail["card_vs_cpu_moe"] = {
         "layers": spec.num_layers, "prefill": [B, T], "decode_steps": n_dec - 1,
         "router_decisions": sum(x[0].shape[0] for x in rref), "router_flips": flips,
         "router_near_ties": near, "router_gap_rtol": ROUTE_GAP_RTOL,
-        "positions": agree.numel(), "max_abs_err": err, "tol": tol,
-        "max_abs_logit": r.abs().max().item(), "max_rel_norm_err": norm_err,
-        "rel_norm_tol": LOGIT_NORM_RTOL, "argmax_agreement": agree.float().mean().item(),
-        "near_ties": int(tie.sum())}
-    log(f"[card-vs-cpu moe] {detail['card_vs_cpu_moe']}")
-    check(err <= tol, f"card vs CPU moe logits: max |err| {err:.4g} > tol {tol:.4g}")
-    check(norm_err <= LOGIT_NORM_RTOL,
-          f"card vs CPU moe logits: relative error norm {norm_err:.4g} > {LOGIT_NORM_RTOL}")
-    check(bool((agree | tie).all()),
-          f"card vs CPU moe: greedy token differs at {int((~agree & ~tie).sum())} positions "
-          f"that are no near-tie")
+        **logits_agree("card-vs-cpu moe", got, ref)}
 
 
 # ---------------------------------------------------------------------------
@@ -1599,6 +1591,417 @@ def card_vs_cpu_ppl(gen, detail, tmp: Path, text: Path, devices=("cuda", "cpu"))
 
 
 # ---------------------------------------------------------------------------
+# slice 5: FP8_BLOCK MLA serving, path E (phase 3's fourth part, phases 12-14)
+# ---------------------------------------------------------------------------
+
+#: DeepSeek-V2-Lite attention (16 heads, kv_lora_rank 512, nope 128 / rope
+#: 64 / v 128, no q LoRA, vocab 102400) with the dense 8192-wide MLP of the
+#: JAX package's benchmarks/bench_fp8.py:93-135, tied embeddings, all 27
+#: layers (the bench cut them to 12 for a 16 GB chip)
+MLA_GEOMETRY = dict(vocab_size=102400, hidden_size=2048, num_layers=27, num_heads=16,
+                    num_kv_heads=16, head_dim=128, intermediate_size=8192, qk_norm=False,
+                    tie_word_embeddings=True, q_lora_rank=0, kv_lora_rank=512,
+                    qk_rope_head_dim=64, qk_nope_head_dim=128, v_head_dim=128,
+                    model_type="deepseek_v3")
+#: bench_fp8.py:79: batch 8, a 128-token prefill, 128 greedy steps, 512 slots
+MLA_STEPS = 128
+#: the FP8_BLOCK linears of configs/recipes/recipe_fp8_block_mla.yaml (its
+#: ignore list keeps kv_a_proj_with_mqa bf16)
+FP8_ATTN, FP8_MLP = ("q_proj", "kv_b_proj", "o_proj"), ("gate_proj", "up_proj", "down_proj")
+#: (K, N) of the four fp8 calls of a path-E decoder layer at decode
+FP8_SHAPES = {"q_proj": (2048, 3072), "o_proj": (2048, 2048), "gate_up": (2048, 16384),
+              "down": (8192, 2048)}
+#: fill lengths of the MLA decode check: empty, the path's mean (timed), full
+MLA_FILLS = (0, 192, MAX_LEN - 1)
+
+
+def fp8_linear(gen, k: int, n: int, std: float = 0.02):
+    """A random bf16 (N, K) weight (std ``std``, from the seeded generator)
+    quantized to FP8_BLOCK 128 x 128 by the port's ``core.numerics``."""
+    from quantizers_tpu_torch.core import PRESET_SCHEMES, quantize
+    from quantizers_tpu_torch.ops.linear import from_quantized
+
+    args = PRESET_SCHEMES["FP8_BLOCK"].weights
+    w = (torch.randn((n, k), device=gen.device, generator=gen) * std).bfloat16()
+    return from_quantized(quantize(w, args), args)
+
+
+def check_fp8(gen, k: int, n: int, m: int, timed: bool) -> dict:
+    """K9 against its plain version: 1e-2 of the plain output's largest
+    |value|, the same bits from a second call."""
+    from quantizers_tpu_torch.ops import kernels as K
+
+    lin = fp8_linear(gen, k, n)
+    x = torch.randn((m, k), device=gen.device, generator=gen).bfloat16()
+    label = f"{m}x{k}x{n}"
+    got = K.fp8_matmul(x, lin)
+    ref = K.fp8_matmul_plain(x, lin.weight, lin.scale)
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs().max().item()
+    tol = RTOL["fp8_matmul"] * ref.float().abs().max().item()
+    check(bool(torch.isfinite(got).all()), f"fp8_matmul {label}: non-finite output")
+    check(err <= tol, f"fp8_matmul {label}: max |err| {err:.4g} > tol {tol:.4g}")
+    check(torch.equal(K.fp8_matmul(x, lin), got), f"fp8_matmul {label}: differs from run to run")
+    row = {"m": m, "k": k, "n": n, "max_abs_err": err, "tol": tol}
+    if not timed:
+        return row
+    return time_matmul(K.fp8_matmul, lambda x, c: K.fp8_matmul_plain(x, c.weight, c.scale),
+                       x, lin, row)
+
+
+def sdpa_backends(*args, **kw) -> list:
+    """The scaled_dot_product_attention backends that take these inputs."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    ok = []
+    for b in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+              SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([b]):
+                F.scaled_dot_product_attention(*args, **kw)
+            ok.append(b.name)
+        except RuntimeError:
+            pass
+    return ok
+
+
+def check_mla_decode(gen, L: int, timed: bool) -> dict:
+    """K8 at the path-E shape (B 8, H 16, r 512, rope 64 padded to 128,
+    S 512), every row at fill length ``L``, stale rows past it NaN: each
+    (row, head) held to 2e-2 of its own largest |value|, the written rows
+    and the untouched ones exactly."""
+    from quantizers_tpu_torch.ops import kernels as K
+
+    B, H, S = BATCH, MLA_GEOMETRY["num_heads"], MAX_LEN
+    r, dr, dp = MLA_GEOMETRY["kv_lora_rank"], MLA_GEOMETRY["qk_rope_head_dim"], 128
+    dev = gen.device
+
+    def rnd(*shape):
+        return torch.randn(shape, device=dev, generator=gen).bfloat16()
+
+    q_abs, new_c = rnd(B, H, r), rnd(B, r)
+    q_pe, new_p = F.pad(rnd(B, H, dr), (0, dp - dr)), F.pad(rnd(B, dr), (0, dp - dr))
+    cc, cp = rnd(B, 1, S, r), F.pad(rnd(B, 1, S, dr), (0, dp - dr))
+    cc[:, :, L + 1:], cp[:, :, L + 1:] = float("nan"), float("nan")
+    lengths = torch.full((B,), L, dtype=torch.int32, device=dev)
+    sm = 1.0 / math.sqrt(MLA_GEOMETRY["qk_nope_head_dim"] + dr)
+    c1, p1, c2, p2 = cc.clone(), cp.clone(), cc.clone(), cp.clone()
+    got = K.mla_decode_attention(q_abs, q_pe, new_c, new_p, c1, p1, lengths, sm)
+    ref = K.mla_decode_attention_plain(q_abs, q_pe, new_c, new_p, c2, p2, lengths, sm)
+    torch.cuda.synchronize()
+    label = f"L={L}"
+    check(bool(torch.isfinite(got).all()), f"mla_decode_attention {label}: non-finite output")
+    errs = (got.float() - ref.float()).abs().amax(dim=2)
+    tols = RTOL["mla_decode_attention"] * ref.float().abs().amax(dim=2)
+    ratio = errs / tols
+    b, h = divmod(int(ratio.argmax()), H)
+    err, tol = errs[b, h].item(), tols[b, h].item()
+    check(bool((ratio <= 1).all()),
+          f"mla_decode_attention {label}: b={b} h={h}: max |err| {err:.4g} > tol {tol:.4g}")
+    same = lambda a, b: bool(torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0)))  # noqa: E731
+    check(same(c1, c2) and same(p1, p2), f"mla_decode_attention {label}: cache rows differ")
+    check(torch.equal(c1[:, 0, L], new_c) and torch.equal(p1[:, 0, L], new_p)
+          and same(c1[:, :, :L], cc[:, :, :L]) and same(c1[:, :, L + 1:], cc[:, :, L + 1:]),
+          f"mla_decode_attention {label}: the new row is not at L alone")
+    check(torch.equal(K.mla_decode_attention(q_abs, q_pe, new_c, new_p, cc.clone(), cp.clone(),
+                                             lengths, sm), got),
+          f"mla_decode_attention {label}: differs from run to run")
+    row = {"B": B, "H": H, "r": r, "rope_pad": dp, "S": S, "L": L, "max_abs_err": err,
+           "tol": tol, "worst_at": f"b={b} h={h}", "worst_ratio": ratio.max().item()}
+    if not timed:
+        return row
+    cc, cp = cc.nan_to_num(0.0), cp.nan_to_num(0.0)
+    cache_bytes = (cc.numel() + cp.numel()) * 2
+    caches = rotating([(cc, cp)] + [(cc.clone(), cp.clone())
+                                    for _ in range(copies_for(cache_bytes) - 1)])
+
+    def kern():
+        a, b = caches()
+        return K.mla_decode_attention(q_abs, q_pe, new_c, new_p, a, b, lengths, sm)
+
+    def plain():
+        a, b = caches()
+        return K.mla_decode_attention_plain(q_abs, q_pe, new_c, new_p, a, b, lengths, sm)
+
+    # the yardstick: one SDPA call, q = [q_abs | q_pe], k = [C | P], v = C
+    qcat = torch.cat([q_abs, q_pe], dim=-1)[:, :, None, :]
+    kv = rotating([(torch.cat([a, b], dim=-1), a) for a, b in
+                   (caches() for _ in range(copies_for(cache_bytes)))])
+    mask = (torch.arange(S, device=dev) <= L)[None, None, None, :].expand(B, 1, 1, S)
+
+    def library():
+        k, v = kv()
+        return F.scaled_dot_product_attention(qcat, k, v, attn_mask=mask, scale=sm,
+                                              enable_gqa=True)
+
+    before = K.mla_decode_attention.launches
+    row["ms"] = cuda_ms(kern)
+    K.mla_decode_attention.launches = before  # timing launches are not main-path launches
+    row["plain_ms"] = cuda_ms(plain, iters=10)
+    row["library_ms"] = cuda_ms(library)
+    row["library"] = ("scaled_dot_product_attention(enable_gqa=True), backends taking it: "
+                      + ",".join(sdpa_backends(qcat, *kv(), attn_mask=mask, scale=sm,
+                                               enable_gqa=True)))
+    del kv
+    width = r + dp
+    nbytes = (q_abs.numel() + q_pe.numel()) * 2 + 2 * B * width * 2 + B * L * width * 2 \
+        + got.numel() * 2  # queries, new rows in and written, the prefix read, ctx out
+    row.update(bound(nbytes, 2 * B * H * (L + 1) * (width + r)))
+    return row
+
+
+def slice5_kernels(gen, detail) -> dict:
+    """K9 at the four path-E decode shapes (m 8 timed, m 128 checked) and a
+    ragged one; K8 at three fill lengths (L 192 timed)."""
+    rows = {"fp8_matmul": {}, "mla_decode_attention": {}}
+    for label, (k, n) in FP8_SHAPES.items():
+        rows["fp8_matmul"][f"{label}@m8"] = check_fp8(gen, k, n, 8, timed=True)
+        rows["fp8_matmul"][f"{label}@m128"] = check_fp8(gen, k, n, 128, timed=False)
+    rows["fp8_matmul"]["ragged@m3"] = check_fp8(gen, 384, 256, 3, timed=False)
+    for L in MLA_FILLS:
+        rows["mla_decode_attention"][f"L{L}"] = check_mla_decode(gen, L, timed=L == 192)
+    for key in rows:
+        for label, r in rows[key].items():
+            log(f"[kernels] {key} {label}: {r}")
+    detail["kernels"].update(rows)
+    return rows
+
+
+def build_fp8_mla_params(spec, gen):
+    """Path E's params on the card, as the FP8_BLOCK MLA recipe makes them:
+    random bf16 weights (std 0.02, the seeded generator) quantized to
+    FP8_BLOCK for q_proj, kv_b_proj, o_proj and the MLP, kv_a_proj_with_mqa
+    bf16, unit norms, a bf16 embedding of std 0.02 (tied)."""
+    from quantizers_tpu_torch.ops.linear import dense_linear
+
+    dev = gen.device
+    D, Ff, H = spec.hidden_size, spec.intermediate_size, spec.num_heads
+    r, dr = spec.kv_lora_rank, spec.qk_rope_head_dim
+
+    def ones(n):
+        return torch.ones((n,), dtype=torch.bfloat16, device=dev)
+
+    layers = []
+    for _ in range(spec.num_layers):
+        kva = (torch.randn((r + dr, D), device=dev, generator=gen) * 0.02).bfloat16()
+        layers.append({
+            "input_layernorm": ones(D), "post_attention_layernorm": ones(D),
+            "q_proj": fp8_linear(gen, D, H * spec.qk_head_dim),
+            "kv_a_proj_with_mqa": dense_linear(kva), "kv_a_layernorm": ones(r),
+            "kv_b_proj": fp8_linear(gen, r, H * (spec.qk_nope_head_dim + spec.v_head_dim)),
+            "o_proj": fp8_linear(gen, H * spec.v_head_dim, D),
+            "mlp": {"gate_proj": fp8_linear(gen, D, Ff), "up_proj": fp8_linear(gen, D, Ff),
+                    "down_proj": fp8_linear(gen, Ff, D)}})
+    embed = (torch.randn((spec.vocab_size, D), device=dev, generator=gen) * 0.02).bfloat16()
+    return {"embed": embed, "layers": layers, "final_norm": ones(D), "lm_head": None}
+
+
+def mla_step_bytes(spec, params, steps: int) -> dict:
+    """Bytes one path-E decode step must read: each layer's tensors but
+    kv_b_proj (the absorbed weights stand in for it), the int8 head, B
+    embedding rows, and the valid latent prefix (r + rope_pad per token)
+    averaged over ``steps`` steps from the prefill."""
+    layers = sum(tensor_bytes({k: v for k, v in lyr.items() if k != "kv_b_proj"})
+                 for lyr in params["layers"])
+    head = tensor_bytes(params["lm_head"]) + tensor_bytes(params["final_norm"])
+    (_, r), (_, dp) = spec.kv_cache_dims()
+    row = spec.num_layers * BATCH * (r + dp) * 2
+    latent = row * sum(PREFILL + i + 1 for i in range(steps)) / steps
+    total = layers + head + BATCH * spec.hidden_size * 2 + latent
+    return {"layers": layers, "head": head, "latent_valid": latent, "total": total}
+
+
+def serve_mla_phase(gen, detail):
+    """Path E: FP8_BLOCK MLA at 27 layers, batch 8, 128 + 128 tokens."""
+    from quantizers_tpu_torch.models import KVCache, ModelSpec
+    from quantizers_tpu_torch.ops import kernels as K
+    from quantizers_tpu_torch.serve import prefill, serving_layout
+    from quantizers_tpu_torch.serve.engine import _decode_scan
+
+    spec = ModelSpec(**MLA_GEOMETRY)
+    dev = gen.device
+    L = spec.num_layers
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = serving_layout(spec, build_fp8_mla_params(spec, gen), head_bits=8, device=dev)
+    torch.cuda.synchronize()
+    t_layout = time.perf_counter() - t0
+    peak, resident = torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
+    log(f"[mla] params + serving_layout(head_bits=8): {t_layout:.1f} s; peak "
+        f"{peak / 1e9:.2f} GB, resident {resident / 1e9:.2f} GB")
+    lyr = params["layers"][0]
+    check(all(lyr[k].kind == "fp8" for k in ("q_proj", "o_proj"))
+          and lyr["mlp"]["gateup_proj"].kind == "fp8" and lyr["mlp"]["down_proj"].kind == "fp8"
+          and lyr["kv_a_proj_with_mqa"].kind == "dense" and "mla_absorb" in lyr,
+          "path E: resident fp8 layout with absorbed weights")
+    head = params["lm_head"]
+    check(head.kind == "w8" and head.meta_dict["orig_n"] == spec.vocab_size
+          and head.out_features == 102912, "path E: int8 head padded to 102912")
+    ids = ((torch.arange(BATCH * PREFILL, device=dev).reshape(BATCH, PREFILL) * 97 + 1)
+           % spec.vocab_size)
+
+    # warm-up (allocator, cuBLAS): not counted
+    wc = KVCache.init(spec, BATCH, MAX_LEN, device=dev)
+    last, wc = prefill(params, spec, ids, wc)
+    _decode_scan(params, spec, wc, last.argmax(-1), None, steps=2, temperature=0.0, top_k=0)
+    del wc
+
+    # the main path, with every launch count set to 0 just before it
+    caches = KVCache.init(spec, BATCH, MAX_LEN, device=dev)
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last, caches = prefill(params, spec, ids, caches)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    after_prefill = K.launch_counts()
+    first = last.argmax(-1)
+    caches0 = [c.clone() for c in caches]
+    t0 = time.perf_counter()
+    toks, _ = _decode_scan(params, spec, caches, first, None, steps=MLA_STEPS,
+                           temperature=0.0, top_k=0)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    counts = K.launch_counts()
+    log(f"[mla] prefill {BATCH}x{PREFILL}: {t_prefill * 1e3:.1f} ms; launches {after_prefill}")
+    log(f"[mla] decode {MLA_STEPS} steps: {t_decode:.3f} s; launches {counts}")
+    check(bool(torch.isfinite(last).all()), "path E: prefill logits not finite")
+    check(not any(after_prefill.values()),
+          f"path E prefill at m={BATCH * PREFILL} must launch no kernel: {after_prefill}")
+    want = expect(fp8_matmul=4 * L * MLA_STEPS, mla_decode_attention=L * MLA_STEPS,
+                  w8_matmul=MLA_STEPS)
+    check(counts == want, f"path E decode launch counts {counts} != {want}")
+    check(toks.shape == (BATCH, MLA_STEPS) and bool(((toks >= 0) & (toks < spec.vocab_size)).all()),
+          "path E: decoded ids out of range")
+    check(all(int(c.length[0]) == PREFILL + MLA_STEPS for c in caches), "path E: cache lengths")
+
+    _, t_decode2 = time_decode(spec, params, caches0, first, "path E", steps=MLA_STEPS)
+    prof = profile_decode(spec, params, caches0, first)
+    sb = mla_step_bytes(spec, params, MLA_STEPS)
+    best = min(t_decode, t_decode2) / MLA_STEPS
+    bound_s = sb["total"] / HBM_BYTES_PER_S
+    res = {"layers": L, "serving_layout_s": t_layout, "peak_memory_gb": peak / 1e9,
+           "resident_gb": resident / 1e9, "prefill_ms": t_prefill * 1e3,
+           "decode_s": [t_decode, t_decode2], "ms_per_step": best * 1e3, "tok_s": BATCH / best,
+           "bytes_per_step": sb, "bound_ms": bound_s * 1e3, "frac_of_bound": bound_s / best,
+           "launches_per_step": {k: v // MLA_STEPS for k, v in counts.items() if v},
+           "profile": prof}
+    detail["serve_mla"] = res
+    log(f"[mla] decode: {res['ms_per_step']:.2f} ms/step, {res['tok_s']:.1f} tok/s; bytes bound "
+        f"{res['bound_ms']:.3f} ms: {res['frac_of_bound']:.4f}")
+    log(f"[mla] profile: {json.dumps(prof)}")
+    del caches, caches0
+    return spec, params, counts
+
+
+def mla_batcher_phase(spec, params, gen, detail):
+    """Path E through ``ContinuousBatcher``: 12 mixed-length requests on the
+    served params (their layout kept). Each row prefill (a 32- or 128-token
+    bucket) runs K9 for the four fp8 calls of every layer and K3 for the
+    head; each decode step K9, K8 and K3."""
+    from quantizers_tpu_torch.ops import kernels as K
+    from quantizers_tpu_torch.serve import ContinuousBatcher
+
+    rng = torch.Generator().manual_seed(13)
+    t0 = time.perf_counter()
+    s = ContinuousBatcher(spec, params, max_batch=BATCH, max_len=MAX_LEN, device=gen.device)
+    reqs = {}
+    for _ in range(12):
+        T = int(torch.randint(5, 121, (1,), generator=rng))
+        n = int(torch.randint(8, 17, (1,), generator=rng))
+        prompt = torch.randint(1, spec.vocab_size, (T,), generator=rng).tolist()
+        reqs[s.submit(prompt, n)] = n
+    K.reset_launch_counts()
+    res = s.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = K.launch_counts()
+    check(sorted(res) == sorted(reqs), "path E batcher: not every request finished")
+    for rid, n in reqs.items():
+        check(len(res[rid]) == n, f"path E batcher: request {rid} has {len(res[rid])} != {n} tokens")
+        check(all(0 <= t < spec.vocab_size for t in res[rid]), "path E batcher: id out of range")
+    L = spec.num_layers
+    steps = counts["mla_decode_attention"] // L
+    want = expect(fp8_matmul=4 * L * (len(reqs) + steps), mla_decode_attention=L * steps,
+                  w8_matmul=len(reqs) + steps)
+    check(steps > 0 and counts == want, f"path E batcher launches {counts} != {want}")
+    detail["batcher_mla"] = {"requests": len(reqs), "tokens": sum(reqs.values()),
+                             "decode_steps": steps, "seconds": dt, "launches": counts}
+    log(f"[mla batcher] {detail['batcher_mla']}")
+
+
+def card_vs_cpu_mla(detail, text: str, devices=("cuda", "cpu")):
+    """Path E at 2 layers, full width: the same FP8_BLOCK weights (made and
+    quantized on the CPU) laid out on each device. Prefill 2 x 16 plus 15
+    teacher-forced steps with the bf16 latent cache (K9 and K8 on the card)
+    and again with the fp8 cache (the plain attention path on both); then
+    one no-cache perplexity call over a (1, 512) window (K9 at m 512 and K4
+    at head dim 256 on the card)."""
+    from quantizers_tpu_torch.data import ByteTokenizer
+    from quantizers_tpu_torch.models import KVCache, ModelSpec, forward
+    from quantizers_tpu_torch.ops import kernels as K
+    from quantizers_tpu_torch.serve import perplexity, serving_layout
+    from quantizers_tpu_torch.serve.engine import token_logprobs
+
+    spec = ModelSpec(**dict(MLA_GEOMETRY, num_layers=2))
+    raw = build_fp8_mla_params(spec, torch.Generator().manual_seed(4242))
+    B, T, n_dec = 2, 16, 16
+    ids = np.random.default_rng(77).integers(1, spec.vocab_size, (B, T + n_dec))
+    win = np.asarray(ByteTokenizer()(text)["input_ids"][:512], np.int32)[None]
+    batch = [(win, np.ones(win.shape, np.float32))]
+    L = spec.num_layers
+    out = {}
+    for dev in devices:
+        t0 = time.perf_counter()
+        p = serving_layout(spec, raw, head_bits=8, device=dev)
+        res = {}
+        for fp8 in (False, True):
+            caches = KVCache.init(spec, B, 64, device=dev, fp8=fp8)
+            K.reset_launch_counts()
+            logits = []
+            with torch.no_grad():
+                lg, caches = forward(p, spec, torch.as_tensor(ids[:, :T], device=dev),
+                                     caches=caches)
+                logits.append(lg[:, -1].float().cpu())
+                for t in range(T, T + n_dec - 1):
+                    lg, caches = forward(p, spec, torch.as_tensor(ids[:, t:t + 1], device=dev),
+                                         caches=caches)
+                    logits.append(lg[:, -1].float().cpu())
+            res[fp8] = (torch.stack(logits, 1), K.launch_counts())
+        K.reset_launch_counts()
+        ppl = perplexity(spec, p, batch, device=dev)
+        ppl_counts = K.launch_counts()
+        nll = -token_logprobs(p, spec, torch.as_tensor(win, device=dev).long()).cpu()
+        out[dev] = (res, ppl, ppl_counts, nll)
+        log(f"[card-vs-cpu mla] {dev}: {time.perf_counter() - t0:.1f} s")
+        del p, caches
+    (res, ppl_c, counts_ppl, nll_c), (ref, ppl_r, _, nll_r) = (out[d] for d in devices)
+    steps = n_dec - 1
+    want_bf16 = expect(fp8_matmul=4 * L * (1 + steps), mla_decode_attention=L * steps,
+                       w8_matmul=1 + steps)
+    want_fp8 = expect(fp8_matmul=4 * L * (1 + steps), w8_matmul=1 + steps)
+    check(res[False][1] == want_bf16, f"card vs CPU mla: launches {res[False][1]} != {want_bf16}")
+    check(res[True][1] == want_fp8, f"card vs CPU mla, fp8 KV: launches {res[True][1]} != {want_fp8}")
+    want_ppl = expect(fp8_matmul=5 * L, flash_attention=L, w8_matmul=1)
+    check(counts_ppl == want_ppl, f"card vs CPU mla, perplexity: launches {counts_ppl} != {want_ppl}")
+    row = {"layers": L, "prefill": [B, T], "decode_steps": steps,
+           "bf16_cache": logits_agree("card-vs-cpu mla", res[False][0], ref[False][0]),
+           "fp8_cache": logits_agree("card-vs-cpu mla fp8 KV", res[True][0], ref[True][0])}
+    check(bool(torch.isfinite(nll_c).all()), "card vs CPU mla: NLL not finite")
+    ratio = ((nll_c - nll_r).abs() / (NLL_RTOL * nll_r.abs().clamp(min=1.0))).max().item()
+    ppl_err = abs(ppl_c - ppl_r) / ppl_r
+    row["perplexity"] = {"window": list(win.shape), "max_abs_nll_err": (nll_c - nll_r).abs().max().item(),
+                         "mean_nll": nll_r.mean().item(), "worst_err_over_tol": ratio,
+                         "ppl": {devices[0]: ppl_c, devices[1]: ppl_r}, "ppl_rel_err": ppl_err,
+                         "launches": counts_ppl}
+    detail["card_vs_cpu_mla"] = row
+    log(f"[card-vs-cpu mla] perplexity {row['perplexity']}")
+    check(ratio <= 1, f"card vs CPU mla: per-token NLL error {ratio:.3g} x its limit")
+    check(ppl_err <= PPL_RTOL, f"card vs CPU mla: perplexity {ppl_c} vs {ppl_r}: {ppl_err:.3g}")
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     # the port is imported inside the phases, so that a copy of this script
@@ -1658,6 +2061,7 @@ def main() -> int:
     detail["kernels"] = {"w4_matmul": w4_rows, "w8_matmul": w8_rows, "decode_attention": attn}
     s2 = slice2_kernels(gen, detail)
     fl = flash_kernels(gen, detail)
+    s5 = slice5_kernels(gen, detail)
 
     # phase 4: serve, slice 1
     spec, raw, counts = serve_phase(gen, detail)
@@ -1689,8 +2093,15 @@ def main() -> int:
         torch.cuda.empty_cache()
         card_vs_cpu_ppl(gen, detail, Path(tmp), text)
 
-    # phase 12: the kernels line (w4 and the NVFP4 matmuls: the four calls of
-    # one decoder layer at m = 8, summed)
+    # phases 12-14: path E (slice 5's main path), its batcher, card against CPU
+    spec_e, params_e, counts_e = serve_mla_phase(gen, detail)
+    mla_batcher_phase(spec_e, params_e, gen, detail)
+    del params_e
+    torch.cuda.empty_cache()
+    card_vs_cpu_mla(detail, synthetic_text())
+
+    # phase 15: the kernels line (w4, the NVFP4 and the fp8 matmuls: the four
+    # calls of one decoder layer at m = 8, summed)
     timed4 = [w4_rows[f"{lbl}@m8"] for lbl in w4_shapes]
 
     def total(rows, key):
@@ -1754,6 +2165,16 @@ def main() -> int:
          "launches": counts_d["flash_attention"], "path": "D eval", **worst(fl),
          **{key: fl["path_D"][key]
             for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
+        {"name": "fp8_matmul", "route": "cuda", "source": src + "fp8_matmul.cu",
+         "replaces": "quantizers_tpu/ops/kernels.py:488", "launches": counts_e["fp8_matmul"],
+         "path": "E decode", **worst(s5["fp8_matmul"]), **layer_sum(s5["fp8_matmul"]),
+         "bound_by": "bytes"},
+        {"name": "mla_decode_attention", "route": "cuda", "source": src + "mla_decode_attention.cu",
+         "replaces": "quantizers_tpu/ops/kernels.py:961",
+         "launches": counts_e["mla_decode_attention"], "path": "E decode",
+         **worst(s5["mla_decode_attention"]),
+         **{key: s5["mla_decode_attention"]["L192"][key]
+            for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
     ]
     check(all(k["launches"] > 0 for k in kernels_line), "a kernel never launched on its path")
     detail["total_s"] = time.perf_counter() - t_start
@@ -1761,7 +2182,8 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_detail.json").write_text(json.dumps(detail, indent=1))
     log(f"[done] {detail['total_s']:.1f} s; serve {json.dumps(detail['serve'])}; "
-        f"path A {json.dumps({k: v for k, v in detail['serve_moe'].items() if k != 'profile'})}")
+        f"path A {json.dumps({k: v for k, v in detail['serve_moe'].items() if k != 'profile'})}; "
+        f"path E {json.dumps({k: v for k, v in detail['serve_mla'].items() if k != 'profile'})}")
     print(json.dumps({"kernels": kernels_line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

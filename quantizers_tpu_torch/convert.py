@@ -26,11 +26,14 @@ _LINEAR_FIELDS = ("kind", "weight", "scale", "zero_point", "bias", "meta")
 
 
 def to_tensor(a: Any, device: torch.device) -> torch.Tensor:
-    """An array-like as a tensor on ``device``. bf16 arrays (``ml_dtypes``
-    bfloat16, which ``torch.from_numpy`` refuses) go across as their bits."""
+    """An array-like as a tensor on ``device``. bf16 and FP8 E4M3 arrays
+    (``ml_dtypes`` types, which ``torch.from_numpy`` refuses) go across as
+    their bits."""
     arr = np.array(a, copy=True, order="C")  # writable, owned by the tensor
     if arr.dtype.name == "bfloat16":
         t = torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    elif arr.dtype.name == "float8_e4m3fn":
+        t = torch.from_numpy(arr.view(np.uint8)).view(torch.float8_e4m3fn)
     elif arr.dtype.kind in "biuf":
         t = torch.from_numpy(arr)
     else:

@@ -1,11 +1,15 @@
 """Quantization numerics in PyTorch: scale solving, quantize, dequantize.
 
-Counterpart of ``quantizers_tpu/core/numerics.py`` for the INT strategies
-(tensor, channel, group, token) and NVFP4 (``tensor_group``: E2M1 values
-with 16-wide group scales snapped to FP8 E4M3 under an f32 global scale).
-FP8 weights arrive with their port slice. Weights follow the HF
-``(out, in)`` convention; reduction for scales is along ``in`` unless the
-strategy says otherwise.
+Counterpart of ``quantizers_tpu/core/numerics.py`` for the INT and FP8
+E4M3 strategies (tensor, channel, group, block, token) and NVFP4
+(``tensor_group``: E2M1 values with 16-wide group scales snapped to FP8
+E4M3 under an f32 global scale). Weights follow the HF ``(out, in)``
+convention; reduction for scales is along ``in`` unless the strategy says
+otherwise.
+
+Every division by a constant divides by a tensor of it: PyTorch's CUDA
+division by a Python scalar multiplies by its reciprocal, which would move
+codes on the card against the CPU and the JAX package.
 """
 
 from __future__ import annotations
@@ -44,12 +48,6 @@ def _round_half_away(x: torch.Tensor) -> torch.Tensor:
     return torch.sign(x) * torch.floor(torch.abs(x) + 0.5)
 
 
-def _not_int(args: QuantizationArgs) -> NotImplementedError:
-    return NotImplementedError(
-        f"{args.type.value}{args.num_bits} weight numerics are not ported yet "
-        "(FP8 weights land with ROADMAP queue 1, slice 5)")
-
-
 def quantize_to_fp8(x: torch.Tensor) -> torch.Tensor:
     """Round values to the FP8 E4M3 grid (clipped to +-448), as f32. The
     cast rounds to nearest, ties to even, as ml_dtypes does."""
@@ -86,10 +84,11 @@ def compute_scale_zp(min_val: torch.Tensor, max_val: torch.Tensor,
     max_val = torch.clamp(max_val.float(), min=0.0)
     if args.symmetric:
         absmax = torch.maximum(min_val.abs(), max_val.abs())
-        scale = torch.clamp(absmax / args.scale_divisor, min=eps)
+        scale = torch.clamp(absmax / torch.full_like(absmax, args.scale_divisor), min=eps)
         zp = torch.zeros_like(scale, dtype=torch.int32)
     else:
-        scale = torch.clamp((max_val - min_val) / (qmax - qmin), min=eps)
+        span = max_val - min_val
+        scale = torch.clamp(span / torch.full_like(span, qmax - qmin), min=eps)
         zp = _round_half_away(qmin - min_val / scale).to(torch.int32)
         zp = torch.clamp(zp, qmin, qmax)
     return scale, zp
@@ -99,6 +98,20 @@ def _grouped(w: torch.Tensor, group_size: int) -> torch.Tensor:
     """(out, in) -> (out, n_groups, group_size), padding in-dim if needed."""
     out_f = w.shape[0]
     return _pad_axis(w, 1, group_size).reshape(out_f, -1, group_size)
+
+
+def _blocked(w: torch.Tensor, block: Tuple[int, int]) -> torch.Tensor:
+    """(out, in) -> (nbr, nbc, br, bc) block view, padded."""
+    br, bc = block
+    w = _pad_axis(_pad_axis(w, 0, br), 1, bc)
+    o, i = w.shape
+    return w.reshape(o // br, br, i // bc, bc).permute(0, 2, 1, 3)
+
+
+def _unblocked(b: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
+    """(nbr, nbc, br, bc) -> the (out, in) tensor of ``shape``."""
+    nbr, nbc, br, bc = b.shape
+    return b.permute(0, 2, 1, 3).reshape(nbr * br, nbc * bc)[: shape[0], : shape[1]]
 
 
 def minmax_along(w: torch.Tensor, args: QuantizationArgs
@@ -112,15 +125,20 @@ def minmax_along(w: torch.Tensor, args: QuantizationArgs
     if s in (QuantStrategy.GROUP, QuantStrategy.TENSOR_GROUP):
         g = _grouped(w, int(args.group_size))
         return g.amin(dim=-1), g.amax(dim=-1)
+    if s == QuantStrategy.BLOCK:
+        b = _blocked(w, tuple(args.block_structure))
+        return b.amin(dim=(-1, -2)), b.amax(dim=(-1, -2))
     raise NotImplementedError(f"strategy {s.value} is not ported yet")
 
 
 def _snap(x: torch.Tensor, args: QuantizationArgs) -> torch.Tensor:
-    """Round a scaled tensor onto the INT grid."""
-    if args.type != QuantType.INT:
-        raise _not_int(args)
-    qmin, qmax = args.qrange
-    return torch.clamp(_round_half_away(x), qmin, qmax)
+    """Round a scaled tensor onto the INT, FP8 E4M3 or FP4 E2M1 grid."""
+    if args.type == QuantType.INT:
+        qmin, qmax = args.qrange
+        return torch.clamp(_round_half_away(x), qmin, qmax)
+    if args.num_bits == 8:
+        return quantize_to_fp8(x)
+    return quantize_to_fp4(x)
 
 
 def _quantize_nvfp4(w: torch.Tensor, args: QuantizationArgs,
@@ -147,12 +165,12 @@ def quantize(w: torch.Tensor, args: QuantizationArgs,
              scale: Optional[torch.Tensor] = None,
              zero_point: Optional[torch.Tensor] = None,
              global_scale: Optional[torch.Tensor] = None) -> QuantizedTensor:
-    """Quantize ``w`` under INT or NVFP4 (``tensor_group``) ``args``; solves
-    min/max (NVFP4: absmax and global) scales if not given."""
+    """Quantize ``w`` under INT, FP8 or NVFP4 (``tensor_group``) ``args``;
+    solves min/max (NVFP4: absmax and global) scales if not given. FP8
+    values come back as f32 numbers on the E4M3 grid, as in the JAX
+    package."""
     if args.strategy == QuantStrategy.TENSOR_GROUP:
         return _quantize_nvfp4(w.float(), args, scale, global_scale)
-    if args.type != QuantType.INT:
-        raise _not_int(args)
     if args.observer and "mse" in args.observer:
         raise NotImplementedError("the mse observer lands with the calibration slice")
     orig_shape = tuple(w.shape)
@@ -173,9 +191,17 @@ def quantize(w: torch.Tensor, args: QuantizationArgs,
         if not args.symmetric:
             x = x + zero_point[..., None]
         q = _snap(x, args).reshape(orig_shape[0], -1)[:, : orig_shape[1]]
+    elif s == QuantStrategy.BLOCK:
+        b = _blocked(w, tuple(args.block_structure))
+        x = b / scale[..., None, None]
+        if not args.symmetric:
+            x = x + zero_point[..., None, None]
+        q = _unblocked(_snap(x, args), orig_shape)
     else:
         raise NotImplementedError(f"strategy {s.value} is not ported yet")
-    return QuantizedTensor(q.to(torch.int8), scale,
+    if args.type == QuantType.INT:
+        q = q.to(torch.int8)
+    return QuantizedTensor(q, scale,
                            zero_point if not args.symmetric else None, None, orig_shape)
 
 
@@ -198,4 +224,9 @@ def dequantize(qt: QuantizedTensor, args: QuantizationArgs) -> torch.Tensor:
             g = g - qt.zero_point[..., None]
         w = g * scale[..., None]
         return w.reshape(qt.shape[0], -1)[:, : qt.shape[1]]
+    if s == QuantStrategy.BLOCK:
+        b = _blocked(q, tuple(args.block_structure))
+        if qt.zero_point is not None:
+            b = b - qt.zero_point[..., None, None]
+        return _unblocked(b * scale[..., None, None], qt.shape)
     raise NotImplementedError(f"strategy {s.value} is not ported yet")

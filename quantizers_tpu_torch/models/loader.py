@@ -7,11 +7,10 @@ transformer's params, with quantized weights in the port's at-rest
 :class:`~quantizers_tpu_torch.ops.linear.QuantLinear` /
 :class:`~quantizers_tpu_torch.models.moe.ExpertLinears` layouts. Tensors
 are read on the CPU and unpacked on the target device, which is the CUDA
-card unless the caller passes ``device="cpu"``.
-
-FP8 (``float-quantized``) modules and MLA models wait for ROADMAP slice 5
-and raise ``NotImplementedError``; the JAX package's zero-allocation
-``abstract_quantized_tree`` is not ported yet (ROADMAP).
+card unless the caller passes ``device="cpu"``. MLA models load with their
+latent-attention projections, and FP8 (``float-quantized``) modules as
+``fp8`` linears. The JAX package's zero-allocation ``abstract_quantized_tree``
+is not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -29,7 +28,6 @@ from ..formats.safetensors_io import ShardedReader, ShardedWriter, dump_json
 from ..ops.linear import QuantLinear, dense_linear, from_quantized
 from .config import ModelSpec
 from .moe import ExpertLinears
-from .transformer import _no_mla
 
 logger = logging.getLogger(__name__)
 
@@ -42,7 +40,6 @@ def _build_params(
     dtype=torch.bfloat16,
 ) -> Dict[str, Any]:
     """Assemble the params dict from name-addressed accessors."""
-    _no_mla(spec)
 
     def arr(name: str) -> torch.Tensor:
         a = get_array(name)
@@ -59,14 +56,25 @@ def _build_params(
     layers: List[Dict[str, Any]] = []
     for i in range(spec.num_layers):
         p = f"model.layers.{i}"
+        a = f"{p}.self_attn"
         layer: Dict[str, Any] = {
             "input_layernorm": arr(f"{p}.input_layernorm.weight"),
             "post_attention_layernorm": arr(f"{p}.post_attention_layernorm.weight"),
-            "o_proj": lin(f"{p}.self_attn.o_proj"),
-            "q_proj": lin(f"{p}.self_attn.q_proj"),
-            "k_proj": lin(f"{p}.self_attn.k_proj"),
-            "v_proj": lin(f"{p}.self_attn.v_proj"),
+            "o_proj": lin(f"{a}.o_proj"),
         }
+        if spec.is_mla:
+            if spec.q_lora_rank:
+                layer["q_a_proj"] = lin(f"{a}.q_a_proj")
+                layer["q_a_layernorm"] = arr(f"{a}.q_a_layernorm.weight")
+                layer["q_b_proj"] = lin(f"{a}.q_b_proj")
+            else:
+                layer["q_proj"] = lin(f"{a}.q_proj")
+            layer["kv_a_proj_with_mqa"] = lin(f"{a}.kv_a_proj_with_mqa")
+            layer["kv_a_layernorm"] = arr(f"{a}.kv_a_layernorm.weight")
+            layer["kv_b_proj"] = lin(f"{a}.kv_b_proj")
+        else:
+            for proj in ("q_proj", "k_proj", "v_proj"):
+                layer[proj] = lin(f"{a}.{proj}")
         if spec.qk_norm:
             layer["q_norm"] = arr(f"{p}.self_attn.q_norm.weight")
             layer["k_norm"] = arr(f"{p}.self_attn.k_norm.weight")
@@ -140,9 +148,8 @@ def load_compressed_model(ckpt_dir: Union[str, Path], spec: Optional[ModelSpec] 
                           dtype=torch.bfloat16, device: DeviceLike = None
                           ) -> Tuple[ModelSpec, Dict[str, Any]]:
     """Load a compressed-tensors checkpoint onto ``device``: dense, w4/w8
-    INT and NVFP4 linears, MoE expert stacks, shared experts and the
-    router's ``e_score_correction_bias``. An FP8 module raises
-    ``NotImplementedError`` (slice 5) rather than being dequantized."""
+    INT, FP8 and NVFP4 linears, MoE expert stacks, shared experts and the
+    router's ``e_score_correction_bias``."""
     dev = resolve_device(device)
     ckpt_dir = Path(ckpt_dir)
     spec = spec or ModelSpec.from_hf_config(ckpt_dir)
@@ -188,10 +195,14 @@ def iter_model_linears(spec: ModelSpec, params: Dict[str, Any]):
     """Yield (hf_prefix, QuantLinear) pairs; an MoE layer yields its router
     and each expert of its stacks under per-expert prefixes, the module
     paths the reference's recipes target."""
-    _no_mla(spec)
+    if spec.is_mla:
+        attn_projs = (("q_a_proj", "q_b_proj") if spec.q_lora_rank else ("q_proj",)
+                      ) + ("kv_a_proj_with_mqa", "kv_b_proj", "o_proj")
+    else:
+        attn_projs = ("q_proj", "k_proj", "v_proj", "o_proj")
     for i, layer in enumerate(params["layers"]):
         p = f"model.layers.{i}"
-        for proj in ("q_proj", "k_proj", "v_proj", "o_proj"):
+        for proj in attn_projs:
             yield f"{p}.self_attn.{proj}", layer[proj]
         if spec.layer_is_moe(i):
             moe = layer["moe"]
@@ -228,7 +239,6 @@ def save_hf_model(spec: ModelSpec, params: Dict[str, Any], out_dir: Union[str, P
 
 def model_plain_tensors(spec: ModelSpec, params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """All non-linear tensors under their HF names (for checkpoint writing)."""
-    _no_mla(spec)
     out: Dict[str, torch.Tensor] = {
         "model.embed_tokens.weight": params["embed"],
         "model.norm.weight": params["final_norm"],
@@ -240,6 +250,10 @@ def model_plain_tensors(spec: ModelSpec, params: Dict[str, Any]) -> Dict[str, to
         if spec.qk_norm:
             out[f"{p}.self_attn.q_norm.weight"] = layer["q_norm"]
             out[f"{p}.self_attn.k_norm.weight"] = layer["k_norm"]
+        if spec.is_mla:
+            if spec.q_lora_rank:
+                out[f"{p}.self_attn.q_a_layernorm.weight"] = layer["q_a_layernorm"]
+            out[f"{p}.self_attn.kv_a_layernorm.weight"] = layer["kv_a_layernorm"]
         if spec.layer_is_moe(i) and "e_score_correction_bias" in layer["moe"]:
             out[f"{p}.mlp.gate.e_score_correction_bias"] = (
                 layer["moe"]["e_score_correction_bias"].float())

@@ -25,7 +25,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_kernels_build"
 SOURCES = ("w4_matmul.cu", "w8_matmul.cu", "decode_attention.cu", "nvfp4_matmul.cu",
-           "moe_slot_ffn.cu", "moe_slot_gu_ffn.cu", "flash_attention.cu")
+           "moe_slot_ffn.cu", "moe_slot_gu_ffn.cu", "flash_attention.cu", "fp8_matmul.cu",
+           "mla_decode_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -53,6 +54,11 @@ SIGNATURES = {
     # sm_scale, causal, stream
     "qtt_flash_attention": (_P, _P, _P, _P, *(_L,) * 12, _I, _I, _I, _I, _I, _I, _I,
                             ctypes.c_float, _I, _P),
+    # x, w fp8, block scales f32, out, M, K, N, stream
+    "qtt_fp8_matmul": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # q_abs, q_pe, new_c, new_p, cache_c, cache_p, lengths, ctx, B, H, r, dp, S, sm_scale, stream
+    "qtt_mla_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 ctypes.c_float, _P),
 }
 
 

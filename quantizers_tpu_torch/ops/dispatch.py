@@ -2,7 +2,7 @@
 dequantize-then-matmul reference path.
 
 The routing is the JAX package's (``quantizers_tpu/ops/dispatch.py``): kind
-w4, w8 or nvfp4, symmetric, a shape the kernel takes, and at most
+w4, w8, nvfp4 or fp8, symmetric, a shape the kernel takes, and at most
 ``KERNEL_MAX_ROWS`` activation rows. It is decided from the shapes before
 any launch. A CUDA tensor that qualifies goes to the kernel, and a build or
 launch failure raises; a CPU tensor that qualifies goes to the kernel's

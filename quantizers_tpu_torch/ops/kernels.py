@@ -21,6 +21,10 @@ current stream and raises if the launch fails. It adds one to its
   stacks);
 * :func:`moe_slot_gu_ffn` replaces ``_moe_slot_gu_call`` (the same over
   the fused int8 per-channel gate|up layout);
+* :func:`fp8_matmul` replaces ``_fp8_matmul_2d`` (FP8 E4M3 weights with
+  128 x 128 block scales, bf16 activations);
+* :func:`mla_decode_attention` replaces ``_mla_decode_call`` (absorbed-MLA
+  one-token attention over the latent cache, appended in place);
 * :func:`~quantizers_tpu_torch.ops.flash.flash_attention` (module
   :mod:`.flash`) replaces ``quantizers_tpu/ops/flash.py`` ``_flash_call``
   (blockwise attention of the no-cache forward).
@@ -44,6 +48,11 @@ from .linear import QuantLinear, _unpack_fp4, _unpack_nibbles
 #: head dim and largest query-group size the decode-attention kernel is built for
 DECODE_HEAD_DIM = 128
 DECODE_MAX_REP = 8
+#: the largest latent width, padded rope width and cache length the MLA
+#: decode kernel is built for (csrc/mla_decode_attention.cu)
+MLA_MAX_RANK, MLA_MAX_ROPE, MLA_MAX_SLOTS = 1024, 256, 8192
+#: the FP8 block the fp8 kernel takes (rows of K by columns of N)
+FP8_BLOCK = 128
 
 
 def _flatten_x(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, Tuple[int, ...]]:
@@ -237,8 +246,70 @@ def nvfp4_matmul(x: torch.Tensor, lin: QuantLinear) -> torch.Tensor:
     return _nvfp4_call(x, lin, "qtt_nvfp4_matmul", nvfp4_matmul)
 
 
-KERNELS: Dict[str, Callable] = {"w4": w4_matmul, "w8": w8_matmul, "nvfp4": nvfp4_matmul}
-_REASONS: Dict[str, Callable] = {"w4": _w4_reason, "w8": _w8_reason, "nvfp4": _nvfp4_reason}
+# ---------------------------------------------------------------------------
+# FP8 block: float8_e4m3fn (K, N); f32 scales (K/128, N/128)
+# ---------------------------------------------------------------------------
+
+def _fp8_reason(lin: QuantLinear) -> Optional[str]:
+    """Why :func:`fp8_matmul` cannot take ``lin`` (None if it can).
+
+    The conditions of the JAX package's ``fp8_matmul`` as its tests run it
+    (interpret mode): the block strategy, 128 x 128 blocks, 128 | K and
+    128 | N. Its compiled-TPU refusal (``kernels.py:525-532``: no fused
+    formulation beat XLA's dequantize-then-matmul on a v5e) is a fact of
+    that chip, not of the function, and is not mirrored. Other fp8
+    strategies (channel, group, tensor) take the reference path, as there.
+    The payload must be float8_e4m3fn with the f32 (K/128, N/128) grid."""
+    md = lin.meta_dict
+    k, n = int(md["k"]), int(md["n"])
+    if md.get("strategy") != "block":
+        return "fp8 kernel covers the block strategy only"
+    if (int(md["block_k"]) != FP8_BLOCK or int(md["block_n"]) != FP8_BLOCK
+            or k % FP8_BLOCK or n % FP8_BLOCK):
+        return f"fp8 kernel needs 128x128 blocks and 128|K,N (k={k}, n={n})"
+    if (lin.weight.dtype != torch.float8_e4m3fn or lin.scale.dtype != torch.float32
+            or tuple(lin.scale.shape) != (k // FP8_BLOCK, n // FP8_BLOCK)):
+        return "fp8 kernel takes float8_e4m3fn weights with an f32 (K/128, N/128) scale grid"
+    return None
+
+
+def fp8_matmul_plain(x2: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The fp8 kernel's arithmetic in PyTorch: each weight times its
+    block's scale in f32, rounded to bf16, f32 products and sums, bf16 out.
+    x2 (M, K) -> (M, N)."""
+    up = scale.float().repeat_interleave(FP8_BLOCK, dim=0).repeat_interleave(FP8_BLOCK, dim=1)
+    w = (w8.float() * up).to(torch.bfloat16)
+    return (x2.float() @ w.float()).to(torch.bfloat16)
+
+
+@_count
+def fp8_matmul(x: torch.Tensor, lin: QuantLinear) -> torch.Tensor:
+    """x (..., K) @ W^T for an FP8 block-scaled linear -> (..., N)."""
+    reason = _fp8_reason(lin)
+    if reason:
+        raise KernelUnsupported(reason)
+    k, n = lin.in_features, lin.out_features
+    x2, lead = _flatten_x(x, k)
+    if x2.device.type == "cpu":
+        out = fp8_matmul_plain(x2, lin.weight, lin.scale)
+    elif x2.is_cuda:
+        _check_cuda("fp8_matmul", x2, lin.weight, lin.scale)
+        lib = _build.load()
+        m = x2.shape[0]
+        out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
+        err = lib.qtt_fp8_matmul(x2.data_ptr(), lin.weight.data_ptr(), lin.scale.data_ptr(),
+                                 out.data_ptr(), m, k, n, _stream(x2.device))
+        _build.check(err, "fp8_matmul")
+        fp8_matmul.launches += 1
+    else:
+        raise ValueError(f"fp8_matmul: no kernel for device {x2.device}")
+    return out.reshape(*lead, n).to(x.dtype)
+
+
+KERNELS: Dict[str, Callable] = {"w4": w4_matmul, "w8": w8_matmul, "nvfp4": nvfp4_matmul,
+                                "fp8": fp8_matmul}
+_REASONS: Dict[str, Callable] = {"w4": _w4_reason, "w8": _w8_reason, "nvfp4": _nvfp4_reason,
+                                 "fp8": _fp8_reason}
 
 
 def supports(lin: QuantLinear) -> bool:
@@ -321,6 +392,93 @@ def decode_attention(q: torch.Tensor, new_k: torch.Tensor, new_v: torch.Tensor,
         float(sm_scale), _stream(q.device))
     _build.check(err, "decode_attention")
     decode_attention.launches += 1
+    return ctx
+
+
+# ---------------------------------------------------------------------------
+# Absorbed-MLA decode attention over the latent cache, appended in place
+# ---------------------------------------------------------------------------
+
+def mla_decode_reason(q_abs: torch.Tensor, q_pe: torch.Tensor, cache_c: torch.Tensor,
+                      cache_p: torch.Tensor) -> Optional[str]:
+    """Why :func:`mla_decode_attention` cannot take these tensors (None if
+    it can): the JAX kernel's conditions (a cache of the queries' dtype, so
+    that an fp8 latent cache takes the plain attention path; 128 | r and
+    128 | rope_pad; 8 | S), bf16, and the widths the CUDA kernel is built
+    for."""
+    if cache_c.dtype != q_abs.dtype or cache_p.dtype != q_abs.dtype:
+        return "mixed-dtype latent cache goes through the plain attention path"
+    r, dp, S = q_abs.shape[-1], q_pe.shape[-1], cache_c.shape[2]
+    if r % 128 or dp % 128:
+        return "mla decode kernel needs 128|r and 128|rope_pad"
+    if S % 8:
+        return "mla decode kernel needs 8|S"
+    if q_abs.dtype != torch.bfloat16 or q_pe.dtype != torch.bfloat16:
+        return "mla decode kernel takes bf16 queries and caches"
+    if r > MLA_MAX_RANK or dp > MLA_MAX_ROPE or S > MLA_MAX_SLOTS:
+        return (f"the mla decode kernel is built for r <= {MLA_MAX_RANK}, rope_pad <= "
+                f"{MLA_MAX_ROPE}, S <= {MLA_MAX_SLOTS}")
+    return None
+
+
+def mla_decode_attention_plain(q_abs, q_pe, new_c, new_p, cache_c, cache_p, lengths,
+                               sm_scale):
+    """The MLA decode kernel's function in PyTorch: writes the new latent
+    and rope rows at ``min(length, S-1)`` in place, scores every head
+    against positions <= that row as (q_abs . C + q_pe . P) * sm_scale with
+    f32 sums, takes an f32 softmax rounded to bf16 (as the JAX package's
+    kernel does), and returns ctx_lat = p . C with f32 sums, in bf16.
+    Masked positions stay out of every product."""
+    B, H, r = q_abs.shape
+    S = cache_c.shape[2]
+    L = lengths.long().clamp(min=0, max=S - 1)
+    rows = torch.arange(B, device=q_abs.device)
+    cache_c[rows, 0, L] = new_c.to(cache_c.dtype)
+    cache_p[rows, 0, L] = new_p.to(cache_p.dtype)
+    valid = torch.arange(S, device=q_abs.device)[None, :] <= L[:, None]  # (B, S)
+    C = torch.where(valid[:, :, None], cache_c[:, 0].float(), 0.0)
+    P = torch.where(valid[:, :, None], cache_p[:, 0].float(), 0.0)
+    scores = (torch.einsum("bhr,bsr->bhs", q_abs.float(), C)
+              + torch.einsum("bhd,bsd->bhs", q_pe.float(), P)) * sm_scale
+    scores = scores.masked_fill(~valid[:, None, :], float("-inf"))
+    probs = torch.softmax(scores, dim=-1).to(torch.bfloat16).float()
+    return torch.einsum("bhs,bsr->bhr", probs, C).to(q_abs.dtype)
+
+
+@_count
+def mla_decode_attention(q_abs: torch.Tensor, q_pe: torch.Tensor, new_c: torch.Tensor,
+                         new_p: torch.Tensor, cache_c: torch.Tensor, cache_p: torch.Tensor,
+                         lengths: torch.Tensor, sm_scale: float) -> torch.Tensor:
+    """Absorbed one-token MLA attention over the latent cache, written in
+    place.
+
+    q_abs (B, H, r); q_pe (B, H, rope_pad); new_c (B, r); new_p
+    (B, rope_pad); cache_c (B, 1, S, r) and cache_p (B, 1, S, rope_pad),
+    updated in place at row ``min(lengths[b], S-1)``; lengths (B,) int32.
+    Returns ctx_lat (B, H, r). The caller advances ``lengths``."""
+    reason = mla_decode_reason(q_abs, q_pe, cache_c, cache_p)
+    if reason:
+        raise KernelUnsupported(reason)
+    if q_abs.device.type == "cpu":
+        return mla_decode_attention_plain(q_abs, q_pe, new_c, new_p, cache_c, cache_p,
+                                          lengths, sm_scale)
+    if not q_abs.is_cuda:
+        raise ValueError(f"mla_decode_attention: no kernel for device {q_abs.device}")
+    B, H, r = q_abs.shape
+    dp, S = q_pe.shape[2], cache_c.shape[2]
+    q_abs, q_pe = q_abs.contiguous(), q_pe.contiguous()
+    new_c = new_c.to(cache_c.dtype).contiguous()
+    new_p = new_p.to(cache_p.dtype).contiguous()
+    lengths = lengths.to(torch.int32).contiguous()
+    _check_cuda("mla_decode_attention", q_abs, q_pe, new_c, new_p, cache_c, cache_p, lengths)
+    lib = _build.load()
+    ctx = torch.empty_like(q_abs)
+    err = lib.qtt_mla_decode_attention(
+        q_abs.data_ptr(), q_pe.data_ptr(), new_c.data_ptr(), new_p.data_ptr(),
+        cache_c.data_ptr(), cache_p.data_ptr(), lengths.data_ptr(), ctx.data_ptr(),
+        B, H, r, dp, S, float(sm_scale), _stream(q_abs.device))
+    _build.check(err, "mla_decode_attention")
+    mla_decode_attention.launches += 1
     return ctx
 
 
@@ -478,7 +636,8 @@ def moe_slot_gu_ffn(x: torch.Tensor, idx: torch.Tensor, gu_el, down_el) -> torch
 
 
 ALL_KERNELS = (w4_matmul, w8_matmul, decode_attention, nvfp4_matmul, nvfp4_i8_matmul,
-               moe_slot_ffn, moe_slot_gu_ffn, flash_attention)
+               moe_slot_ffn, moe_slot_gu_ffn, flash_attention, fp8_matmul,
+               mla_decode_attention)
 
 
 def reset_launch_counts() -> None:

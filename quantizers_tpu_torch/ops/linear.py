@@ -14,11 +14,15 @@ weights cross between the two as plain numpy arrays
   scales (the global scale folded in) bf16 ``(K//16, N)``. The serving
   layout :func:`nvfp4_device_layout` may turn the codes into int8 ``(K, N)``
   holding 2x the E2M1 value, with the scales halved.
+* ``fp8``  — ``float8_e4m3fn`` ``(K, N)``; f32 scales: a block grid
+  ``(ceil(K/bk), ceil(N/bn))`` (meta ``strategy="block"``, ``block_k``,
+  ``block_n``), groups ``(K/g, N)``, a channel row ``(1, N)`` or one
+  ``(1, 1)`` tensor scale. The serving layout :func:`fp8_device_layout` may
+  hoist them to bf16 ``dense`` copies.
 * ``dense``— bf16/f32 ``(K, N)``.
 
-``fp8`` arrives with its port slice. The TPU's signed-int4 relayout (the w4
-half of ``i4_device_layout``) has no counterpart: the CUDA kernel reads the
-packed bytes directly.
+The TPU's signed-int4 relayout (the w4 half of ``i4_device_layout``) has no
+counterpart: the CUDA kernel reads the packed bytes directly.
 
 The MoE serving layouts live here too, as in the JAX package: the NVFP4
 capacity plan, the int8-doubled NVFP4 layout, and the fused int8
@@ -37,15 +41,6 @@ import torch.nn.functional as F
 
 from ..core.numerics import QuantizedTensor
 from ..core.scheme import QuantizationArgs, QuantStrategy, QuantType
-
-_LATER_KINDS = {
-    "fp8": "ROADMAP queue 1, slice 5 (MLA and FP8)",
-}
-
-
-def _later(kind: str) -> NotImplementedError:
-    return NotImplementedError(f"{kind} linears are not ported yet: {_LATER_KINDS[kind]}")
-
 
 def _group_scaled(vals: torch.Tensor, scale: torch.Tensor,
                   zero_point: Optional[torch.Tensor], g: int, k: int, n: int
@@ -137,9 +132,17 @@ def dequantize_stack(kind: str, weight: torch.Tensor, scale: Optional[torch.Tens
     md = dict(meta)
     if kind == "dense":
         return weight.to(dtype)
-    if kind in _LATER_KINDS:
-        raise _later(kind)
     k, n = int(md["k"]), int(md["n"])
+    if kind == "fp8":
+        vals, s = weight.float(), scale.float()
+        strategy = md.get("strategy", "block")
+        if strategy == "block":
+            up = (s.repeat_interleave(int(md["block_k"]), dim=-2)
+                  .repeat_interleave(int(md["block_n"]), dim=-1))
+            return (vals * up[:, :k, :n]).to(dtype)
+        if strategy == "group":
+            return _group_scaled(vals[:, :k], s, None, int(md["group_size"]), k, n).to(dtype)
+        return (vals * s).to(dtype)  # channel (S, 1, N) / tensor (S, 1, 1)
     if kind == "w4":
         vals, g = _unpack_nibbles(weight).float()[:, :k], int(md["group_size"])
     elif kind == "nvfp4":
@@ -162,7 +165,7 @@ def dequantize_stack(kind: str, weight: torch.Tensor, scale: Optional[torch.Tens
 class QuantLinear:
     """A (possibly) quantized linear weight: tensors plus static ``meta``."""
 
-    kind: str  # dense | w4 | w8 | nvfp4 (fp8 in a later slice)
+    kind: str  # dense | w4 | w8 | fp8 | nvfp4
     weight: torch.Tensor
     scale: Optional[torch.Tensor] = None
     zero_point: Optional[torch.Tensor] = None
@@ -288,8 +291,24 @@ def from_quantized(qt: QuantizedTensor, args: QuantizationArgs,
             kind="nvfp4", weight=packed, scale=eff.to(torch.bfloat16).contiguous(), bias=b,
             meta=(("k", k), ("n", n), ("group_size", int(args.group_size or 16))))
 
-    if args.type == QuantType.FLOAT:
-        raise _later("fp8")
+    if args.type == QuantType.FLOAT and args.num_bits == 8:
+        w8 = values.t().to(torch.float8_e4m3fn).contiguous()  # (K, N), values on the grid
+        if args.strategy == QuantStrategy.BLOCK:
+            br, bc = tuple(args.block_structure)
+            # the (N-blocks, K-blocks) grid over (N, K), transposed
+            scale_t = scale.t()
+            meta = (("k", k), ("n", n), ("strategy", "block"), ("block_k", bc), ("block_n", br))
+        elif args.strategy == QuantStrategy.GROUP:
+            scale_t = scale.t()
+            meta = (("k", k), ("n", n), ("strategy", "group"), ("group_size", int(args.group_size)))
+        elif args.strategy == QuantStrategy.CHANNEL:
+            scale_t = scale.reshape(n, -1).t()
+            meta = (("k", k), ("n", n), ("strategy", "channel"))
+        else:
+            scale_t = scale.reshape(1, 1)
+            meta = (("k", k), ("n", n), ("strategy", "tensor"))
+        return QuantLinear(kind="fp8", weight=w8, scale=scale_t.float().contiguous(), bias=b,
+                           meta=meta)
     raise ValueError(f"no layout for args {args}")
 
 
@@ -318,6 +337,8 @@ def concat_linears(lins: list) -> QuantLinear:
             raise ValueError(f"fusion: mixed None/non-None {field}")
         return torch.cat(vals, dim=dim)
 
+    if first.kind == "fp8" and md0.get("strategy") == "tensor":
+        raise ValueError("cannot fuse tensor-scaled fp8 linears")
     meta = tuple((key, v) if key != "n" else ("n", n_total) for key, v in first.meta)
     return QuantLinear(kind=first.kind, weight=cat("weight"), scale=cat("scale"),
                        zero_point=cat("zero_point"), bias=cat("bias", dim=0), meta=meta)
@@ -358,6 +379,16 @@ def _leaves(tree: Any):
         yield tree
 
 
+def _map_leaves(tree: Any, fn) -> Any:
+    """The params tree with ``fn`` applied to every leaf (new dicts and
+    lists; ``fn`` returns a leaf as it is to keep it)."""
+    if isinstance(tree, dict):
+        return {k: _map_leaves(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_leaves(v, fn) for v in tree)
+    return fn(tree)
+
+
 def _nbytes(t: Optional[torch.Tensor]) -> int:
     return 0 if t is None else t.numel() * t.element_size()
 
@@ -367,10 +398,11 @@ def nvfp4_capacity_plan(tree: Any, hbm_bytes: Optional[int] = None,
                         device=None) -> Dict[str, Any]:
     """Decide the NVFP4 serving layout by capacity: the resident bytes of
     the params as they are (``packed_bytes``) and with every packed NVFP4
-    payload stored as int8 (``int8_bytes``, one more byte per packed byte),
-    against ``(1 - headroom)`` of the device's memory (``hbm_bytes``, by
-    default :func:`device_hbm_bytes` of ``device``). Expert stacks divide
-    by ``expert_shards``."""
+    payload stored as int8 and every fp8 weight as a bf16 copy
+    (``int8_bytes``, one more byte per packed byte or fp8 weight), against
+    ``(1 - headroom)`` of the device's memory (``hbm_bytes``, by default
+    :func:`device_hbm_bytes` of ``device``). Expert stacks divide by
+    ``expert_shards``."""
     if hbm_bytes is None:
         hbm_bytes = device_hbm_bytes(device)
     packed_total = 0
@@ -382,7 +414,7 @@ def nvfp4_capacity_plan(tree: Any, hbm_bytes: Optional[int] = None,
         div = expert_shards if _is_expert_stack(leaf) else 1
         nb = sum(_nbytes(t) for t in (leaf.weight, leaf.scale, leaf.zero_point, leaf.bias))
         packed_total += nb // div
-        if leaf.kind == "nvfp4" and leaf.weight.dtype == torch.uint8:
+        if (leaf.kind == "nvfp4" and leaf.weight.dtype == torch.uint8) or leaf.kind == "fp8":
             int8_extra += _nbytes(leaf.weight) // div
     budget = int((1.0 - headroom) * hbm_bytes)
     int8_total = packed_total + int8_extra
@@ -436,14 +468,25 @@ def nvfp4_device_layout(tree: Any, nvfp4_int8: Optional[bool] = None,
             leaf_int8 = nvfp4_int8_experts
         return _nvfp4_to_i8(x) if leaf_int8 else x
 
-    def walk(node: Any) -> Any:
-        if isinstance(node, dict):
-            return {k: walk(v) for k, v in node.items()}
-        if isinstance(node, (list, tuple)):
-            return type(node)(walk(v) for v in node)
-        return conv(node)
+    return _map_leaves(tree, conv)
 
-    return walk(tree)
+
+def fp8_device_layout(tree: Any, fp8_dense: bool) -> Any:
+    """The fp8 half of the JAX package's ``i4_device_layout``: with
+    ``fp8_dense`` every fp8 :class:`QuantLinear` becomes a bf16 ``dense``
+    copy of its dequantized weight (the hoisted dequantize, one more byte
+    per weight); without it the tree is returned as it is and fp8 weights
+    stay resident. Expert stacks and other leaves pass through."""
+    if not fp8_dense:
+        return tree
+
+    def hoist(x: Any) -> Any:
+        if not (isinstance(x, QuantLinear) and x.kind == "fp8"):
+            return x
+        return QuantLinear(kind="dense", weight=x.dequantize(torch.bfloat16), bias=x.bias,
+                           meta=(("k", x.in_features), ("n", x.out_features)))
+
+    return _map_leaves(tree, hoist)
 
 
 def experts_to_w8pc(el: Any, chunk: int = 16) -> Any:

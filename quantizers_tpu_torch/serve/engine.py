@@ -17,7 +17,7 @@ import torch
 
 from .._device import DeviceLike, resolve_device
 from ..models.config import ModelSpec
-from ..models.transformer import KVCache, forward, tree_to
+from ..models.transformer import KVCache, forward, mla_absorb_layout, tree_to
 
 _PAD_MULT = 64
 
@@ -39,7 +39,7 @@ def _sample(logits: torch.Tensor, generator: Optional[torch.Generator],
 def prefill(params: Dict[str, Any], spec: ModelSpec, ids: torch.Tensor,
             caches: List[KVCache]) -> Tuple[torch.Tensor, List[KVCache]]:
     """Run the prompt into the caches; returns (last-position logits (B, V), caches)."""
-    logits, caches = forward(params, spec, ids, caches=caches)
+    logits, caches = forward(mla_absorb_layout(spec, params), spec, ids, caches=caches)
     return logits[:, -1], caches
 
 
@@ -49,6 +49,8 @@ def _decode_scan(params: Dict[str, Any], spec: ModelSpec, caches: List[KVCache],
                  steps: int, temperature: float, top_k: int
                  ) -> Tuple[torch.Tensor, List[KVCache]]:
     """Emit ``steps`` tokens after ``first``; returns ((B, steps), caches)."""
+    # once per loop, not per step: an MLA model's absorbed weights
+    params = mla_absorb_layout(spec, params)
     tok = first
     out = []
     for _ in range(steps):
@@ -60,18 +62,19 @@ def _decode_scan(params: Dict[str, Any], spec: ModelSpec, caches: List[KVCache],
 
 def generate(spec: ModelSpec, params: Dict[str, Any], prompt_ids: Any,
              max_new_tokens: int = 32, temperature: float = 0.0, top_k: int = 0,
-             seed: int = 0, max_len: Optional[int] = None,
+             seed: int = 0, max_len: Optional[int] = None, fp8_kv: bool = False,
              device: DeviceLike = None) -> np.ndarray:
     """Batch generation from equal-length prompts (B, T); returns
-    (B, max_new_tokens) int32 ids. Sampling draws from a ``torch.Generator``
+    (B, max_new_tokens) int32 ids. ``fp8_kv`` keeps the KV cache in
+    float8_e4m3fn (unit scales). Sampling draws from a ``torch.Generator``
     seeded with ``seed``, so sampled ids differ from the JAX package's."""
     dev = resolve_device(device)
-    params = tree_to(params, dev)
+    params = mla_absorb_layout(spec, tree_to(params, dev))
     ids = torch.as_tensor(np.asarray(prompt_ids), dtype=torch.long, device=dev)
     B, T = ids.shape
     if max_len is None:
         max_len = -(-(T + max_new_tokens) // _PAD_MULT) * _PAD_MULT
-    caches = KVCache.init(spec, B, max_len, device=dev)
+    caches = KVCache.init(spec, B, max_len, device=dev, fp8=fp8_kv)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     last_logits, caches = prefill(params, spec, ids, caches)
@@ -95,7 +98,7 @@ def token_logprobs(params: Dict[str, Any], spec: ModelSpec, ids: torch.Tensor) -
     ``ids[:, 1:]`` under a no-cache forward: the f32 ``log_softmax`` of
     ``logits[:, :-1]``, taken over ``_NLL_ROWS`` positions at a time, which
     bounds its f32 transient (each row's values are those of one full call)."""
-    logits, _ = forward(params, spec, ids)
+    logits, _ = forward(mla_absorb_layout(spec, params), spec, ids)
     B, T, V = logits.shape
     lg = logits[:, :-1].reshape(-1, V)
     tgt = ids[:, 1:].reshape(-1, 1).long()

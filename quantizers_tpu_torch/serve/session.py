@@ -56,6 +56,7 @@ def _merge_row(caches: List[KVCache], row_caches: List[KVCache], slot: int) -> L
 
 MOE_LAYOUTS = ("w8pc", "int8", "packed")
 NVFP4_LAYOUTS = ("int8", "packed")
+FP8_LAYOUTS = ("resident", "auto")
 
 
 def _layout_arg(value: Optional[str], env: str, default: Optional[str], allowed) -> Optional[str]:
@@ -70,12 +71,14 @@ def serving_layout(spec: ModelSpec, params: Dict[str, Any],
                    head_bits: Optional[int] = None,
                    device: DeviceLike = None,
                    moe_layout: Optional[str] = None,
-                   nvfp4_layout: Optional[str] = None) -> Dict[str, Any]:
+                   nvfp4_layout: Optional[str] = None,
+                   fp8_layout: Optional[str] = None) -> Dict[str, Any]:
     """The params dict that :class:`ContinuousBatcher` serves, on ``device``.
 
     1. an optional quantized logits head (``head_bits``, per-channel int8:
        half the bytes of the tied bf16 table each step);
-    2. :func:`~quantizers_tpu_torch.models.transformer.fuse_for_decode`;
+    2. :func:`~quantizers_tpu_torch.models.transformer.fuse_for_decode`
+       (for MLA layers, the absorbed-decode weights);
     3. the MoE expert layout (``moe_layout``; ``None`` reads
        ``QTPU_MOE_LAYOUT``, default ``"w8pc"``): ``"w8pc"`` requantizes the
        expert stacks to the fused int8 per-channel layout
@@ -86,19 +89,29 @@ def serving_layout(spec: ModelSpec, params: Dict[str, Any],
     4. the NVFP4 layout of the other linears (``nvfp4_layout``; ``None``
        reads ``QTPU_NVFP4_LAYOUT``, else the capacity plan): ``"int8"``
        (int8-doubled) or ``"packed"``
-       (:func:`~quantizers_tpu_torch.ops.linear.nvfp4_device_layout`).
+       (:func:`~quantizers_tpu_torch.ops.linear.nvfp4_device_layout`);
+    5. the fp8 layout (``fp8_layout``; ``None`` reads ``QTPU_FP8_LAYOUT``,
+       default ``"resident"``): ``"resident"`` keeps fp8 weights at rest,
+       served by the fp8 kernel, one byte per weight; ``"auto"`` hoists
+       them to bf16 dense copies when the NVFP4 decision of step 4 takes
+       the int8 layout (the JAX package's default, which it takes because
+       no fused fp8 kernel serves them on a TPU v5e)
+       (:func:`~quantizers_tpu_torch.ops.linear.fp8_device_layout`).
 
-    On a CUDA device, steps 3 and 4 follow the capacity plan against the
-    device's memory (:func:`~quantizers_tpu_torch.ops.linear.nvfp4_capacity_plan`),
-    as the JAX package's do on a TPU. On the CPU no plan runs: the layouts
-    are those the arguments name, defaulting to the card's defaults
-    (w8pc experts, int8 NVFP4), so the CPU serves what the card serves.
+    On a CUDA device, steps 3 and 4 (and step 5's ``"auto"``) follow the
+    capacity plan against the device's memory
+    (:func:`~quantizers_tpu_torch.ops.linear.nvfp4_capacity_plan`), as the
+    JAX package's do on a TPU. On the CPU no plan runs: the layouts are
+    those the arguments name, defaulting to the card's defaults (w8pc
+    experts, int8 NVFP4, resident fp8), so the CPU serves what the card
+    serves.
 
     A layer's expert stacks are dropped as soon as they are requantized:
     when the caller keeps no other reference to ``params``, the packed and
     the w8pc experts are not resident in full at the same time."""
     from ..ops.linear import (
         _nvfp4_layout_decision,
+        fp8_device_layout,
         infer_expert_shards,
         moe_w8pc_layout,
         nvfp4_capacity_plan,
@@ -108,6 +121,7 @@ def serving_layout(spec: ModelSpec, params: Dict[str, Any],
     dev = resolve_device(device)
     moe_layout = _layout_arg(moe_layout, "QTPU_MOE_LAYOUT", "w8pc", MOE_LAYOUTS)
     nvfp4_layout = _layout_arg(nvfp4_layout, "QTPU_NVFP4_LAYOUT", None, NVFP4_LAYOUTS)
+    fp8_layout = _layout_arg(fp8_layout, "QTPU_FP8_LAYOUT", "resident", FP8_LAYOUTS)
     params = tree_to(params, dev)
     if head_bits:
         params = quantize_lm_head(spec, params, num_bits=head_bits)
@@ -124,8 +138,9 @@ def serving_layout(spec: ModelSpec, params: Dict[str, Any],
         nvfp4_int8 = _nvfp4_layout_decision(params, int8_ok, shards)
     else:
         nvfp4_int8 = nvfp4_layout == "int8"
-    return nvfp4_device_layout(params, nvfp4_int8=nvfp4_int8,
-                               nvfp4_int8_experts=int8_ok and moe_layout != "packed")
+    params = nvfp4_device_layout(params, nvfp4_int8=nvfp4_int8,
+                                 nvfp4_int8_experts=int8_ok and moe_layout != "packed")
+    return fp8_device_layout(params, fp8_dense=fp8_layout == "auto" and nvfp4_int8)
 
 
 class ContinuousBatcher:
@@ -143,11 +158,13 @@ class ContinuousBatcher:
                  head_bits: Optional[int] = None,
                  device: DeviceLike = None,
                  moe_layout: Optional[str] = None,
-                 nvfp4_layout: Optional[str] = None) -> None:
+                 nvfp4_layout: Optional[str] = None,
+                 fp8_layout: Optional[str] = None) -> None:
         self.device = resolve_device(device)
         self.spec = spec
         self.params = serving_layout(spec, params, head_bits=head_bits, device=self.device,
-                                     moe_layout=moe_layout, nvfp4_layout=nvfp4_layout)
+                                     moe_layout=moe_layout, nvfp4_layout=nvfp4_layout,
+                                     fp8_layout=fp8_layout)
         self.max_batch = max_batch
         self.max_len = max_len
         self.buckets = sorted(b for b in prefill_buckets if b <= max_len) or [max_len]

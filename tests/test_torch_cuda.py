@@ -13,9 +13,11 @@ are held as closely as short ones; for the slot FFNs 1e-2 of each slot
 row's largest |value| (f32 outputs; a, rounded to bf16 on both sides, may
 round the other way after sums in another order); for flash attention 2e-2
 of each (b, h, t) row's largest |value| (p rounded to bf16 against a running
-max over 64-key tiles in the kernel, 256-key tiles in the plain version).
-The matmul, slot and flash kernels sum in a fixed order, so a second call
-gives the same bits.
+max over 64-key tiles in the kernel, 256-key tiles in the plain version);
+for the MLA decode kernel 2e-2 of each (row, head)'s largest |value| (p is
+rounded to bf16 on both sides, after f32 sums in another order), its cache
+rows exactly. The matmul, slot, flash and MLA decode kernels sum in a
+fixed order, so a second call gives the same bits.
 """
 
 import math
@@ -214,3 +216,75 @@ def test_moe_slot_gu_ffn_matches_plain(gen, S, D, F, E):
     assert K.moe_slot_gu_ffn.launches == before + 1
     _close_rows(got, K.moe_slot_gu_ffn_plain(x, idx, gu, down), 1e-2)
     assert torch.equal(K.moe_slot_gu_ffn(x, idx, gu, down), got)
+
+
+#: (m, k, n): the four FP8_BLOCK MLA decode calls (q_proj, o_proj, the fused
+#: gate|up, down_proj), the batcher's row prefill width, and small ragged m
+FP8_SHAPES = [(8, 2048, 3072), (8, 2048, 2048), (8, 2048, 16384), (8, 8192, 2048),
+              (128, 2048, 16384), (3, 384, 256), (130, 256, 384)]
+
+
+@pytest.mark.parametrize("m,k,n", FP8_SHAPES)
+def test_fp8_kernel_matches_plain(gen, m, k, n):
+    w = (torch.randn((k, n), device="cuda", generator=gen) * 100).clamp(-448, 448)
+    lin = QuantLinear(kind="fp8", weight=w.to(torch.float8_e4m3fn),
+                      scale=torch.rand((k // 128, n // 128), device="cuda", generator=gen) * 1e-4,
+                      meta=(("k", k), ("n", n), ("strategy", "block"), ("block_k", 128),
+                            ("block_n", 128)))
+    x = torch.randn((m, k), device="cuda", generator=gen).bfloat16()
+    before = K.fp8_matmul.launches
+    got = K.fp8_matmul(x, lin)
+    assert K.fp8_matmul.launches == before + 1
+    _close(got, K.fp8_matmul_plain(x, lin.weight, lin.scale), 1e-2)
+    assert torch.equal(K.fp8_matmul(x, lin), got)
+
+
+@pytest.mark.parametrize("B,H,r,dp,S", [(8, 16, 512, 128, 512), (3, 4, 128, 256, 64)])
+def test_mla_decode_attention_matches_plain(gen, B, H, r, dp, S):
+    def rnd(*shape):
+        return torch.randn(shape, device="cuda", generator=gen).bfloat16()
+
+    qa, qp, nc, npe = rnd(B, H, r), rnd(B, H, dp), rnd(B, r), rnd(B, dp)
+    cc, cp = rnd(B, 1, S, r), rnd(B, 1, S, dp)
+    lengths = torch.randint(0, S + 8, (B,), dtype=torch.int32, device="cuda", generator=gen)
+    lengths[0], lengths[1] = 0, S - 1
+    # stale rows past each length hold NaN: they must never reach a product
+    L = lengths.long().clamp(max=S - 1)
+    stale = torch.arange(S, device="cuda")[None, :] > L[:, None]
+    cc[stale[:, None, :, None].expand_as(cc)] = float("nan")
+    cp[stale[:, None, :, None].expand_as(cp)] = float("nan")
+    c1, p1, c2, p2 = cc.clone(), cp.clone(), cc.clone(), cp.clone()
+    sm = 1 / math.sqrt(192)
+    before = K.mla_decode_attention.launches
+    got = K.mla_decode_attention(qa, qp, nc, npe, c1, p1, lengths, sm)
+    assert K.mla_decode_attention.launches == before + 1
+    ref = K.mla_decode_attention_plain(qa, qp, nc, npe, c2, p2, lengths, sm)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    err = (got.float() - ref.float()).abs().amax(dim=2)
+    assert (err <= 2e-2 * ref.float().abs().amax(dim=2)).all(), err.amax()
+    same = lambda a, b: torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0))  # noqa: E731
+    assert same(c1, c2) and same(p1, p2)
+    rows = torch.arange(B, device="cuda")
+    assert torch.equal(c1[rows, 0, L], nc) and torch.equal(p1[rows, 0, L], npe)
+    c3, p3 = cc.clone(), cp.clone()
+    assert torch.equal(K.mla_decode_attention(qa, qp, nc, npe, c3, p3, lengths, sm), got)
+
+
+@pytest.mark.parametrize("bits,strategy,group", [(4, "group", 32), (8, "channel", None),
+                                                 (8, "block", None)])
+def test_quantize_on_the_card_equals_the_cpu(gen, bits, strategy, group):
+    """The scale solvers divide by tensors: PyTorch's CUDA division by a
+    Python scalar multiplies by its reciprocal, which moves scales (and
+    then codes) by an ulp against the CPU and the JAX package."""
+    from quantizers_tpu_torch.core import numerics as tn
+    from quantizers_tpu_torch.core import scheme as ts
+
+    kind = ts.QuantType.FLOAT if strategy == "block" else ts.QuantType.INT
+    args = ts.QuantizationArgs(num_bits=bits, type=kind, strategy=ts.QuantStrategy(strategy),
+                               group_size=group,
+                               block_structure=(128, 128) if strategy == "block" else None)
+    w = (torch.randn((512, 1024), device="cuda", generator=gen) * 0.02).bfloat16().float()
+    card, cpu = tn.quantize(w, args), tn.quantize(w.cpu(), args)
+    assert torch.equal(card.scale.cpu(), cpu.scale)
+    assert torch.equal(card.values.cpu(), cpu.values)

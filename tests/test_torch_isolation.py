@@ -67,6 +67,36 @@ def test_no_module_imports_jax_or_the_jax_package():
     assert bad.strip() == "[]"
 
 
+def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
+    import ast
+
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names}
+    names |= {n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module}
+    banned = ("jax", "quantizers_tpu", "ml_dtypes", "transformers")
+    assert not sorted(m for m in names if m.split(".")[0] in banned)
+    assert "quantizers_tpu_torch.ops" in names
+
+
+def test_slice5_kernels_are_counted_and_refuse_other_devices():
+    from quantizers_tpu_torch.ops import kernels as K
+    from quantizers_tpu_torch.ops import linear as tl
+
+    assert {"fp8_matmul", "mla_decode_attention"} <= set(K.launch_counts())
+    lin = tl.QuantLinear(kind="fp8", weight=torch.zeros((128, 128), dtype=torch.float8_e4m3fn,
+                                                        device="meta"),
+                         scale=torch.ones((1, 1), device="meta"),
+                         meta=(("k", 128), ("n", 128), ("strategy", "block"), ("block_k", 128),
+                               ("block_n", 128)))
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        K.fp8_matmul(torch.zeros((2, 128), dtype=torch.bfloat16, device="meta"), lin)
+    z = torch.zeros((1, 2, 128), dtype=torch.bfloat16, device="meta")
+    c = torch.zeros((1, 1, 8, 128), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        K.mla_decode_attention(z, z, z[0], z[0], c, c, torch.zeros(1, dtype=torch.int32), 0.1)
+    assert K.fp8_matmul.launches == K.mla_decode_attention.launches == 0
+
+
 ENTRY_POINTS = {
     "init_params": lambda spec, d, **kw: init_params(spec, **kw),
     "KVCache.init": lambda spec, d, **kw: KVCache.init(spec, 1, 8, **kw),
@@ -105,15 +135,32 @@ def test_checkpoint_entry_points_run_on_an_explicit_cpu(name, tiny_dir):
 
 
 @pytest.mark.parametrize("argv,slice_", [
-    (lambda d: make_tiny_model.main([str(d / "mla"), "--mla"]), "slice 5"),
+    # ported in slice 5: writes a tiny MLA model that both packages load
+    (lambda d: make_tiny_model.main([str(d / "mla"), "--mla", "--device", "cpu"]), None),
     (lambda d: make_tiny_model.main([str(d / "fit"), "--fit-corpus", str(d / "config.json")]),
      "training slice"),
     (lambda d: serve.main([str(d), "--prompt", "hi", "--mesh", "dp=1,tp=4", "--device", "cpu"]),
      "slice 8"),
 ], ids=["make_tiny_model --mla", "make_tiny_model --fit-corpus", "serve --mesh"])
 def test_cli_options_of_later_slices_raise(argv, slice_, tiny_dir):
-    with pytest.raises(NotImplementedError, match=slice_):
-        argv(tiny_dir)
+    if slice_ is not None:
+        with pytest.raises(NotImplementedError, match=slice_):
+            argv(tiny_dir)
+        return
+    from quantizers_tpu.models.loader import load_hf_model as jax_load_hf_model
+
+    assert argv(tiny_dir) == 0
+    spec, params = load_hf_model(tiny_dir / "mla", device="cpu")
+    jspec, jparams = jax_load_hf_model(tiny_dir / "mla")
+    assert spec.is_mla and spec == ModelSpec.tiny(mla=True, hidden_size=64, num_layers=2,
+                                                   vocab_size=512)
+    assert jspec.is_mla and jspec.kv_lora_rank == spec.kv_lora_rank
+    for name in ("q_a_proj", "kv_a_proj_with_mqa", "kv_b_proj", "o_proj"):
+        np.testing.assert_array_equal(
+            params["layers"][1][name].weight.float().numpy(),
+            np.asarray(jparams["layers"][1][name].weight, np.float32))
+    assert np.isfinite(perplexity(spec, params, [(np.ones((1, 8), np.int32),
+                                                  np.ones((1, 8), np.float32))], device="cpu"))
 
 
 def test_moe_and_mla_specs_wait_for_their_slices():
@@ -125,8 +172,10 @@ def test_moe_and_mla_specs_wait_for_their_slices():
     assert moe["gate_proj"].num_experts == spec.num_experts
     out = generate(spec, params, [[1, 2, 3]], max_new_tokens=2, device="cpu")
     assert out.shape == (1, 2)
-    # MLA waits for slice 5
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        KVCache.init(ModelSpec.tiny(mla=True), 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        init_params(ModelSpec.tiny(mla=True), device="cpu")
+    # MLA is ported (slice 5): the latent cache, and a random MLA model runs
+    mla = ModelSpec.tiny(mla=True)
+    caches = KVCache.init(mla, 1, 8, device="cpu")
+    assert caches[0].k.shape == (1, 1, 8, mla.kv_lora_rank) and caches[0].v.shape == (1, 1, 8, 128)
+    params = init_params(mla, device="cpu")
+    assert {"q_a_proj", "q_b_proj", "kv_a_proj_with_mqa", "kv_b_proj"} <= set(params["layers"][0])
+    assert generate(mla, params, [[1, 2, 3]], max_new_tokens=2, device="cpu").shape == (1, 2)

@@ -125,9 +125,16 @@ def test_convert_round_trip():
 
 
 def test_later_kinds_raise_not_implemented():
-    lin = tl.QuantLinear(kind="fp8", weight=torch.zeros(4, 4), meta=(("k", 4), ("n", 4)))
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        lin.dequantize()
+    # fp8 linears are ported (slice 5): a tensor-scaled one dequantizes as
+    # the JAX package's does
+    codes = np.array([[0.5, -1.0, 448.0, 0.0]] * 4, np.float32)
+    lin = tl.QuantLinear(kind="fp8", weight=torch.from_numpy(codes).to(torch.float8_e4m3fn),
+                         scale=torch.full((1, 1), 0.25),
+                         meta=(("k", 4), ("n", 4), ("strategy", "tensor")))
+    jlin = jl.QuantLinear(kind="fp8", weight=jnp.asarray(codes, jnp.float8_e4m3fn),
+                          scale=jnp.full((1, 1), 0.25, jnp.float32), meta=lin.meta)
+    np.testing.assert_array_equal(lin.dequantize(torch.float32).numpy(),
+                                  np.asarray(jlin.dequantize(jnp.float32)))
     # a W8A8 linear carried over from the JAX package: its activation
     # quantization is not ported, so only the A16 oracle may run
     w8a8 = tl.QuantLinear(kind="w8", weight=torch.ones(256, 128, dtype=torch.int8),

@@ -84,7 +84,12 @@ def test_minmax_and_scale_solver_equal(strategy):
 
 
 def test_float_schemes_not_ported_yet():
-    fp8 = ts.QuantizationArgs(num_bits=8, type=ts.QuantType.FLOAT,
-                              strategy=ts.QuantStrategy.CHANNEL)
-    with pytest.raises(NotImplementedError):
-        tn.quantize(torch.zeros(4, 4), fp8)
+    """FP8 weights are ported (slice 5): per-channel E4M3 codes and scales
+    equal eager JAX's (every strategy: tests/test_torch_fp8.py)."""
+    w = (np.random.default_rng(3).standard_normal((16, 64)) * 0.1).astype(np.float32)
+    kw = dict(num_bits=8, strategy="channel")
+    ta = ts.QuantizationArgs(type=ts.QuantType.FLOAT, **dict(kw, strategy=ts.QuantStrategy.CHANNEL))
+    ja = js.QuantizationArgs(type=js.QuantType.FLOAT, **dict(kw, strategy=js.QuantStrategy.CHANNEL))
+    tq, jq = tn.quantize(torch.from_numpy(w), ta), jn.quantize(jnp.asarray(w), ja)
+    np.testing.assert_array_equal(tq.values.numpy(), np.asarray(jq.values))
+    np.testing.assert_array_equal(tq.scale.numpy(), np.asarray(jq.scale))
