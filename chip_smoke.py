@@ -215,8 +215,9 @@ def matmul_bytes(lin, m: int) -> int:
 
 def time_matmul(wrapper, plain_fn, x, lin, row: dict) -> dict:
     """Kernel, plain and library times of ``x @ W^T`` (the library call is
-    ``torch.matmul`` on the pre-dequantized bf16 weight), the weights
-    rotated through copies past the L2, and the bound, into ``row``.
+    ``torch.matmul`` on the pre-dequantized bf16 weight), the kernel's and
+    the library's device times, the weights rotated through copies past
+    the L2, and the bound, into ``row``.
     ``plain_fn(x, lin)`` is the kernel's plain version."""
     m, k, n = x.shape[0], lin.in_features, lin.out_features
     nbytes = matmul_bytes(lin, m)
@@ -226,9 +227,13 @@ def time_matmul(wrapper, plain_fn, x, lin, row: dict) -> dict:
     dsrc = rotating([c.dequantize(torch.bfloat16) for c in copies[:2]])
     before = wrapper.launches
     row["ms"] = cuda_ms(lambda: wrapper(x, wsrc()))
+    # a short kernel's launch-to-launch time is the host's cost of a call:
+    # the profiler's device time is the kernel's own
+    row["dev_ms"] = device_ms(lambda: wrapper(x, wsrc()))
     wrapper.launches = before  # timing launches are not main-path launches
     row["plain_ms"] = cuda_ms(lambda: plain_fn(x, wsrc()), iters=5, warmup=1)
     row["library_ms"] = cuda_ms(lambda: torch.matmul(x, dsrc()))
+    row["library_dev_ms"] = device_ms(lambda: torch.matmul(x, dsrc()))
     row.update(bound(nbytes, 2 * m * k * n))
     return row
 
@@ -435,6 +440,12 @@ def device_profile(run, steps: int) -> dict:
             "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
             "top": [{"name": k[:60], "ms_per_step": us / 1e3 / steps, "calls_per_step": c / steps}
                     for us, k, c in rows[:10]]}
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time of one call of ``fn`` (every kernel and copy it runs),
+    from a profiled run of ``iters`` calls."""
+    return device_profile(lambda: [fn() for _ in range(iters)], iters)["device_busy_ms_per_step"]
 
 
 def profile_decode(spec, params, caches0, first, steps: int = 8) -> dict:
@@ -849,7 +860,9 @@ def slice2_kernels(gen, detail) -> dict:
         for label, (k, n) in decode_shapes.items():
             rows[key][f"{label}@m8"] = check_nvfp4(gen, k, n, 8, layout, timed=True)
         for label, (k, n) in expert_shapes.items():
-            rows[key][f"{label}@m128"] = check_nvfp4(gen, k, n, 128, layout, timed=False)
+            # K5b's row prefills run these; K5a's are checked, not timed
+            rows[key][f"{label}@m128"] = check_nvfp4(gen, k, n, 128, layout,
+                                                     timed=layout == "int8")
         for label, r in rows[key].items():
             log(f"[kernels] {key} {label}: {r}")
     plain8 = lambda x, lin: K.w8_matmul_plain(x, lin.weight, lin.scale,  # noqa: E731
@@ -1164,6 +1177,10 @@ def drive_side_path(label, spec, params, per_step: dict, row_prefill: dict = Non
     check(bool(((toks >= 0) & (toks < spec.vocab_size)).all()), f"{label}: ids out of range")
     row = {"layers": spec.num_layers, "steps": SIDE_STEPS, "ms_per_step": dt * 1e3,
            "launches_per_step": {k: v // SIDE_STEPS for k, v in counts.items() if v}}
+    prof = device_profile(lambda: _decode_scan(params, spec, caches, toks[:, -1], None,
+                                               steps=SIDE_STEPS, temperature=0.0, top_k=0),
+                          SIDE_STEPS)
+    row.update({k: prof[k] for k in ("device_busy_ms_per_step", "idle_share")})
     if row_prefill is not None:
         rc = KVCache.init(spec, 1, MAX_LEN, device=dev)
         K.reset_launch_counts()
@@ -2032,7 +2049,8 @@ def main() -> int:
     log(f"[build] {'built' if _build.INFO.built else 'loaded'} {_build.INFO.path} "
         f"in {_build.INFO.seconds:.1f} s")
     for line in _build.INFO.log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if any(key in line for key in ("entry function", "registers", "spill")) or \
+                line.startswith("=="):
             log(f"[build] {line.strip()}")
 
     # phase 3: kernels
@@ -2113,7 +2131,8 @@ def main() -> int:
         return {"max_abs_err": r["max_abs_err"], "tol": r["tol"], "worst_at": label}
 
     def layer_sum(rows):
-        timed = [r for r in rows.values() if "ms" in r]
+        """The timed m = 8 (one decoder layer's decode) shapes, summed."""
+        timed = [r for label, r in rows.items() if "ms" in r and label.endswith("@m8")]
         return {key: total(timed, key) for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
 
     src = "quantizers_tpu_torch/csrc/"

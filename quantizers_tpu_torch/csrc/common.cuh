@@ -63,6 +63,54 @@ __device__ __forceinline__ void load_x8(const float* __restrict__ row, float (&v
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
+// d += a . b on the tensor cores: one warp-level m16n8k16 bf16 product with
+// f32 sums (a: 16x16 row-major fragment, b: 16x8 column-major fragment).
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats as a bf16 pair, the first in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Four 8x8 b16 matrices whose rows start at the addresses of lanes 0-7,
+// 8-15, 16-23 and 24-31, transposed: from matrix q, lane i receives
+// element i/4 of rows 2(i%4) and 2(i%4)+1 (low and high half of r[q]).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// An asynchronous 16-byte copy from device to shared memory; !valid writes
+// 16 zero bytes and reads nothing.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :
+               : "r"(addr), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed copy groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Sum the partial results red[warp][m][c] (c < cols) of a block's WARPS
 // warps in a fixed order and write rows m0.. of the bf16 output at col0.
 template <int WARPS>

@@ -40,10 +40,9 @@
 // shared by the rep query heads of a KV head; heavy (late, causal) query
 // blocks first.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
 
@@ -60,14 +59,8 @@ struct Strides {
   long long b, h, t;  // elements; the last dim is contiguous
 };
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using qtt::mma_bf16;
+using qtt::pack_bf16;
 
 // Two 8x8 bf16 matrices whose rows (keys) start at the addresses of lanes
 // 0-7 and 8-15, transposed: lane i receives rows 2(i%4), 2(i%4)+1 of column
@@ -79,12 +72,6 @@ __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1, co
                : "=r"(r0), "=r"(r1)
                : "r"(addr)
                : "memory");
-}
-
-// Two floats as a bf16 pair, the first in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 __device__ __forceinline__ uint32_t load_pair(const bf16* base, long long st, int row, int col,

@@ -37,6 +37,8 @@ from ..ops.linear import QuantLinear, concat_linears, dense_linear
 from .config import ModelSpec
 from .moe import ExpertLinears, moe_forward
 
+#: the largest finite float8_e4m3fn value, where the fp8 KV cache saturates
+E4M3_MAX = 448.0
 
 # ---------------------------------------------------------------------------
 # primitives
@@ -134,9 +136,10 @@ class KVCache:
 def _store(cache_arr: torch.Tensor, new: torch.Tensor, offsets: torch.Tensor,
            scale: Optional[torch.Tensor] = None) -> None:
     """Write new (B, T, KV, hd) into the head-major cache (B, KV, S, hd) at
-    per-row offsets, in place (an fp8 cache takes ``new / scale``). Like
-    ``dynamic_update_slice``, a start that would run past the end is moved
-    back so the T rows fit."""
+    per-row offsets, in place (an fp8 cache takes ``new / scale``, saturated
+    to the E4M3 range: values past +-448, infinities included, store as
+    +-448, and NaN stays NaN). Like ``dynamic_update_slice``, a start that
+    would run past the end is moved back so the T rows fit."""
     B, T = new.shape[:2]
     S = cache_arr.shape[2]
     start = offsets.long().clamp(min=0, max=S - T)
@@ -144,6 +147,10 @@ def _store(cache_arr: torch.Tensor, new: torch.Tensor, offsets: torch.Tensor,
     rows = torch.arange(B, device=new.device)[:, None]
     if scale is not None:
         new = new.float() / scale
+    if cache_arr.dtype == torch.float8_e4m3fn:
+        # an explicit rule: the cast's own handling of out-of-range values
+        # is not the same on every device
+        new = new.float().clamp(-E4M3_MAX, E4M3_MAX)
     cache_arr[rows, :, pos] = new.to(cache_arr.dtype)
 
 

@@ -22,6 +22,7 @@ fixed order, so a second call gives the same bits.
 
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -123,6 +124,71 @@ def test_nvfp4_kernels_match_plain(gen, layout, m, k, n):
     assert wrapper.launches == before + 1
     _close(got, K.nvfp4_matmul_plain(x, lin.weight, lin.scale, 16), 1e-2)
     assert torch.equal(K.nvfp4_matmul(x, lin), got)
+
+
+#: (m, k, n, g) for the int8-doubled kernel: ragged and edge row counts at
+#: the smallest shape the wrapper admits (k 128, n 128), the row prefills'
+#: expert shapes, and groups other than NVFP4's 16 (the kernel reads their
+#: scales per K row; k 576 ends in a partial stage)
+NVFP4_I8_SHAPES = [(1, 128, 128, 16), (9, 128, 128, 16), (64, 128, 128, 16),
+                   (65, 128, 128, 16), (512, 128, 128, 16), (128, 2048, 768, 16),
+                   (128, 768, 2048, 16), (8, 512, 256, 8), (65, 576, 128, 8),
+                   (8, 512, 256, 32), (33, 768, 384, 32), (9, 384, 128, 48)]
+
+
+@pytest.mark.parametrize("m,k,n,g", NVFP4_I8_SHAPES)
+def test_nvfp4_i8_kernel_shapes_match_plain(gen, m, k, n, g):
+    lin = _nvfp4(gen, k, n, "int8", g)
+    x = torch.randn((m, k), device="cuda", generator=gen).bfloat16()
+    before = K.nvfp4_i8_matmul.launches
+    got = K.nvfp4_i8_matmul(x, lin)
+    assert K.nvfp4_i8_matmul.launches == before + 1 and got.shape == (m, n)
+    _close(got, K.nvfp4_matmul_plain(x, lin.weight, lin.scale, g), 1e-2)
+    assert torch.equal(K.nvfp4_i8_matmul(x, lin), got)
+
+
+def test_nvfp4_i8_kernel_reads_out_every_weight_exactly(gen):
+    """One-hot rows of x read the dequantized weights out through the
+    kernel: every doubled E2M1 value times scales from bf16 subnormals up to
+    the largest exponent at which 12 x scale stays finite. The output must
+    equal the plain version's bit for bit (a single product each, so no sum
+    order enters), which pins the fragment mapping and the dequantization."""
+    m, k, n, g = 8, 512, 256, 16
+    vals = torch.tensor([0, 1, -1, 2, -2, 3, -3, 4, -4, 6, -6, 8, -8, 12, -12], dtype=torch.int8)
+    w8 = vals[torch.arange(k * n).reshape(k, n) % 15].cuda()
+    rng = np.random.default_rng(7)
+    expo = rng.integers(0, 251, (k // g, n))
+    expo[0], expo[1], expo[2] = 0, 1, 250  # subnormal scales and the top of the range
+    bits = (expo << 7) | rng.integers(0, 128, (k // g, n))
+    scale = torch.from_numpy(bits.astype(np.int16)).view(torch.bfloat16).cuda()
+    lin = QuantLinear(kind="nvfp4", weight=w8, scale=scale,
+                      meta=(("k", k), ("n", n), ("group_size", g)))
+    wq = (w8.float() * scale.float().repeat_interleave(g, dim=0)).bfloat16()
+    assert torch.isfinite(wq.float()).all() and (wq[:2 * g] != 0).any()
+    for r0 in range(0, k, m):
+        x = torch.zeros((m, k), dtype=torch.bfloat16, device="cuda")
+        rows = torch.arange(m, device="cuda")
+        x[rows, r0 + rows] = 1
+        got = K.nvfp4_i8_matmul(x, lin)
+        ref = K.nvfp4_matmul_plain(x, w8, scale, g)
+        assert torch.equal(ref, wq[r0:r0 + m])
+        assert torch.equal(got, ref), (r0, (got != ref).nonzero()[:4].tolist())
+
+
+def test_fp8_kv_cache_saturates_on_the_card(gen):
+    """The fp8 cache's explicit rule on the card: the CPU test's row."""
+    from quantizers_tpu_torch.models import transformer as tt
+
+    cache = torch.zeros((1, 1, 8, 6), dtype=torch.float8_e4m3fn, device="cuda")
+    one = torch.tensor(1.0, device="cuda")
+    rows = [[1.0, 300.0, 470.0, 600.0, -2000.0, 5000.0],
+            [float("inf"), float("-inf"), float("nan"), 0.0, 0.0, 0.0]]
+    for i, row in enumerate(rows):
+        new = torch.tensor(row, device="cuda").bfloat16().reshape(1, 1, 1, 6)
+        tt._store(cache, new, torch.tensor([i], dtype=torch.int32, device="cuda"), one)
+    got = tt._read(cache, one, torch.float32)[0, 0].cpu()
+    assert torch.equal(got[0], torch.tensor([1.0, 288.0, 448.0, 448.0, -448.0, 448.0]))
+    assert got[1, :2].tolist() == [448.0, -448.0] and bool(got[1, 2].isnan())
 
 
 def _stack(gen, kind, E, k, n, layout, g):

@@ -250,6 +250,21 @@ def test_fp8_kv_cache_matches_jax(kind, monkeypatch):
     assert out.shape == (1, 3)
 
 
+def test_fp8_kv_cache_saturates():
+    """Past the E4M3 range the cache stores +-448 (the JAX package's cast
+    gives NaN above 464 there: the port does not follow it); NaN stays NaN."""
+    cache = torch.zeros((1, 1, 8, 6), dtype=torch.float8_e4m3fn)
+    new = torch.tensor([1.0, 300.0, 470.0, 600.0, -2000.0, 5000.0]).bfloat16()
+    one = torch.tensor(1.0)
+    tt._store(cache, new.reshape(1, 1, 1, 6), torch.tensor([0], dtype=torch.int32), one)
+    assert torch.equal(tt._read(cache, one, torch.float32)[0, 0, 0],
+                       torch.tensor([1.0, 288.0, 448.0, 448.0, -448.0, 448.0]))
+    odd = torch.tensor([float("inf"), float("-inf"), float("nan"), 0.0, 0.0, 0.0]).bfloat16()
+    tt._store(cache, odd.reshape(1, 1, 1, 6), torch.tensor([1], dtype=torch.int32), one)
+    got = tt._read(cache, one, torch.float32)[0, 0, 1]
+    assert got[:2].tolist() == [448.0, -448.0] and bool(got[2].isnan())
+
+
 def test_tiny_mla_moe_model_matches_jax():
     kw = dict(mla=True, moe=True, num_layers=2)
     jspec, spec, jp, tp = _model(kw, seed=1)
