@@ -98,9 +98,10 @@ BF16_FLOPS = 989e12
 #: stays under 1e-2, and the limit is twice that. Flash attention: the same
 #: limit of each (b, h, t) row's own largest |value|, for the same reasons
 #: (a causal row averages ever more keys, so the late rows' values are
-#: small): the kernel rounds p to bf16 against a running max over 64-key
-#: tiles, the plain version over 256-key tiles (at most 2^-9 of each term
-#: apart), and each side rounds its output once. The fp8 matmul: as the
+#: small): the kernel rounds p to bf16 against a running max over 128-key
+#: tiles (64 at head dim 256) and takes exp as ex2.approx of a product with
+#: log2 e, the plain version over 256-key tiles with exp (at most 2^-9 of
+#: each term apart), and each side rounds its output once. The fp8 matmul: as the
 #: other matmuls. MLA decode attention: each (row, head) against its own
 #: largest |value|, as decode attention (both sides round p to bf16, after
 #: f32 sums in other orders)
@@ -1330,14 +1331,20 @@ def card_vs_cpu_moe(detail, devices=("cuda", "cpu")):
 # and perplexity out (phases 9-11)
 # ---------------------------------------------------------------------------
 
-#: (B, H, KV, T, d, dv, causal): the perplexity path's shape (timed), a
-#: single ragged tile, Qwen3-30B-A3B's heads (rep 8), a non-causal call and
-#: the MLA prefill's padded qk head
+#: (B, H, KV, T, d, dv, causal): the perplexity path's shape and the MLA
+#: prefill's padded qk head (both timed), a single ragged tile, Qwen3-30B-A3B's
+#: heads (rep 8), a non-causal call, less than one 128-row block, a T ragged
+#: over eight blocks (which the JAX package's 256-row blocks refuse: the
+#: kernel is called through its C entry) and d 256 over several key tiles
 FLASH_SHAPES = {"path_D": (4, 32, 8, 2048, 128, 128, True),
                 "ragged_T200": (1, 32, 8, 200, 128, 128, True),
                 "rep8": (2, 32, 4, 512, 128, 128, True),
                 "non_causal": (1, 8, 8, 256, 128, 128, False),
-                "mla_d256": (1, 16, 16, 512, 256, 128, True)}
+                "mla_d256": (1, 16, 16, 512, 256, 128, True),
+                "T64": (1, 8, 8, 64, 128, 128, True),
+                "ragged_T1000": (1, 16, 4, 1000, 128, 128, True),
+                "d256_T1024": (2, 16, 16, 1024, 256, 128, True)}
+FLASH_TIMED = ("path_D", "mla_d256")
 #: path D's eval: windows of 2048 at stride 1024 (later windows score their
 #: last 1024 tokens only), 4 windows a batch, 8 windows: two (4, 2048) batches
 EVAL_ARGS = ["--window", "2048", "--stride", "1024", "--batch-size", "4", "--max-windows", "8"]
@@ -1351,10 +1358,31 @@ NLL_RTOL = 2e-2
 PPL_RTOL = 1e-2
 
 
+def flash_c_entry(q, k, v, sm: float, causal: bool):
+    """K4 through its C entry, as the wrapper launches it but without the
+    JAX package's block conditions (``flash_reason``): the kernel takes any
+    T and S. Adds nothing to the wrapper's launch count."""
+    from quantizers_tpu_torch.ops import _build
+    from quantizers_tpu_torch.ops._launch import _stream
+    from quantizers_tpu_torch.ops.flash import _kernel_view
+
+    q, k, v = _kernel_view(q), _kernel_view(k), _kernel_view(v)
+    B, H, T, d = q.shape
+    KV, S, dv = k.shape[1], k.shape[2], v.shape[3]
+    out = torch.empty((B, T, H, dv), dtype=torch.bfloat16, device=q.device).transpose(1, 2)
+    strides = [st for t in (q, k, v, out) for st in t.stride()[:3]]
+    err = _build.load().qtt_flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                            out.data_ptr(), *strides, B, H, KV, T, S, d, dv,
+                                            float(sm), int(causal), _stream(q.device))
+    _build.check(err, "flash_attention")
+    return out
+
+
 def check_flash(gen, label, shape, timed: bool) -> dict:
     """K4 against its plain version at one shape, with q as the transformer
     passes it (a transpose(1, 2) view); each (b, h, t) row is held to RTOL
-    of its own largest |value|."""
+    of its own largest |value|. A shape that the JAX package's blocks refuse
+    goes to the kernel's C entry and to the plain version over one block."""
     from quantizers_tpu_torch.ops import flash as FL
 
     B, H, KV, T, d, dv, causal = shape
@@ -1368,8 +1396,12 @@ def check_flash(gen, label, shape, timed: bool) -> dict:
 
     q, k, v = inputs()
     sm = 1.0 / math.sqrt(d)
-    got = FL.flash_attention(q, k, v, sm, causal)
-    ref = FL.flash_attention_plain(q, k, v, sm, causal)
+    blocks = {}
+    kernel = FL.flash_attention
+    if FL.flash_reason(q, k, v) is not None:
+        blocks, kernel = {"block_q": T, "block_k": T}, flash_c_entry
+    got = kernel(q, k, v, sm, causal)
+    ref = FL.flash_attention_plain(q, k, v, sm, causal, **blocks)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(got).all()), f"flash_attention {label}: non-finite output")
     errs = (got.float() - ref.float()).abs().amax(dim=3)
@@ -1379,21 +1411,28 @@ def check_flash(gen, label, shape, timed: bool) -> dict:
     err, tol = errs[b, h, t].item(), tols[b, h, t].item()
     check(bool((ratio <= 1).all()),
           f"flash_attention {label}: b={b} h={h} t={t}: max |err| {err:.4g} > tol {tol:.4g}")
-    check(torch.equal(FL.flash_attention(q, k, v, sm, causal), got),
+    check(torch.equal(kernel(q, k, v, sm, causal), got),
           f"flash_attention {label}: differs from run to run")
     row = {"shape": dict(zip(("B", "H", "KV", "T", "d", "dv", "causal"), shape)),
            "max_abs_err": err, "tol": tol, "worst_row": [int(b), int(h), int(t)],
            "worst_ratio": ratio.max().item(), "largest_abs_err": errs.max().item()}
     if not timed:
         return row
-    src = rotating([(q, k, v), inputs()])  # 2 x 168 MB: past the 50 MB L2
+    src = rotating([(q, k, v), inputs()])  # path D: 2 x 168 MB, past the 50 MB L2
+
+    def library():
+        return F.scaled_dot_product_attention(*src(), is_causal=causal, scale=sm, enable_gqa=True)
+
     before = FL.flash_attention.launches
-    row["ms"] = cuda_ms(lambda: FL.flash_attention(*src(), sm, causal))
+    row["ms"] = cuda_ms(lambda: kernel(*src(), sm, causal))
+    # launch to launch includes the wrapper's host path; the profiler's
+    # device time is the kernel's own
+    row["dev_ms"] = device_ms(lambda: kernel(*src(), sm, causal))
     FL.flash_attention.launches = before  # timing launches are not main-path launches
-    row["plain_ms"] = cuda_ms(lambda: FL.flash_attention_plain(*src(), sm, causal),
+    row["plain_ms"] = cuda_ms(lambda: FL.flash_attention_plain(*src(), sm, causal, **blocks),
                               iters=3, warmup=1)
-    row["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
-        *src(), is_causal=causal, scale=sm, enable_gqa=True))
+    row["library_ms"] = cuda_ms(library)
+    row["library_dev_ms"] = device_ms(library)
     row["library"] = "torch.nn.functional.scaled_dot_product_attention(enable_gqa=True)"
     pairs = T * (T + 1) // 2 if causal else T * T  # the (row, key) pairs this data needs
     nbytes = 2 * (B * H * T * d + B * KV * T * (d + dv) + B * H * T * dv)
@@ -1402,7 +1441,7 @@ def check_flash(gen, label, shape, timed: bool) -> dict:
 
 
 def flash_kernels(gen, detail) -> dict:
-    rows = {label: check_flash(gen, label, shape, timed=label == "path_D")
+    rows = {label: check_flash(gen, label, shape, timed=label in FLASH_TIMED)
             for label, shape in FLASH_SHAPES.items()}
     for label, r in rows.items():
         log(f"[kernels] flash_attention {label}: {r}")
@@ -2183,7 +2222,8 @@ def main() -> int:
          "replaces": "quantizers_tpu/ops/flash.py:86",
          "launches": counts_d["flash_attention"], "path": "D eval", **worst(fl),
          **{key: fl["path_D"][key]
-            for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
+            for key in ("ms", "dev_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                        "library_dev_ms")}},
         {"name": "fp8_matmul", "route": "cuda", "source": src + "fp8_matmul.cu",
          "replaces": "quantizers_tpu/ops/kernels.py:488", "launches": counts_e["fp8_matmul"],
          "path": "E decode", **worst(s5["fp8_matmul"]), **layer_sum(s5["fp8_matmul"]),

@@ -89,8 +89,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_
 
 def _kernel_view(t: torch.Tensor) -> torch.Tensor:
     """``t`` as the kernel reads it: a contiguous last dim, 16-byte aligned
-    rows (strides of whole 8-element chunks); a view is kept where it is."""
-    aligned = (t.stride(-1) == 1 and all(s % 8 == 0 for s in t.stride()[:-1])
+    rows (strides of whole 8-element chunks, none 0: the kernel's TMA copies
+    take no expanded view); a view is kept where it is."""
+    aligned = (t.stride(-1) == 1 and all(s % 8 == 0 and s > 0 for s in t.stride()[:-1])
                and t.data_ptr() % 16 == 0)
     return t if aligned else t.contiguous()
 

@@ -13,7 +13,8 @@ are held as closely as short ones; for the slot FFNs 1e-2 of each slot
 row's largest |value| (f32 outputs; a, rounded to bf16 on both sides, may
 round the other way after sums in another order); for flash attention 2e-2
 of each (b, h, t) row's largest |value| (p rounded to bf16 against a running
-max over 64-key tiles in the kernel, 256-key tiles in the plain version);
+max over 128-key tiles in the kernel, 64 at head dim 256, and 256-key tiles
+in the plain version);
 for the MLA decode kernel 2e-2 of each (row, head)'s largest |value| (p is
 rounded to bf16 on both sides, after f32 sums in another order), its cache
 rows exactly. The matmul, slot, flash and MLA decode kernels sum in a
@@ -224,36 +225,97 @@ def test_moe_slot_ffn_matches_plain(gen, kind, layout, g, S, D, F, E):
 
 
 #: (B, H, KV, T, d, dv, causal): the perplexity path's shape, a single
-#: ragged tile, Qwen3-30B-A3B's heads (rep 8), a non-causal call, and the
-#: MLA prefill's padded qk head
+#: ragged tile, Qwen3-30B-A3B's heads (rep 8), a non-causal call, the MLA
+#: prefill's padded qk head, less than one 128-row block, a T ragged over
+#: eight blocks (which the JAX package's 256-row blocks refuse: the kernel
+#: is called through its C entry), and d 256 over several key tiles
 FLASH_SHAPES = [(4, 32, 8, 2048, 128, 128, True), (1, 32, 8, 200, 128, 128, True),
                 (2, 32, 4, 512, 128, 128, True), (1, 8, 8, 256, 128, 128, False),
-                (1, 16, 16, 512, 256, 128, True)]
+                (1, 16, 16, 512, 256, 128, True), (1, 8, 8, 64, 128, 128, True),
+                (1, 16, 4, 1000, 128, 128, True), (2, 16, 16, 1024, 256, 128, True)]
 
 
-@pytest.mark.parametrize("B,H,KV,T,d,dv,causal", FLASH_SHAPES)
-def test_flash_attention_matches_plain(gen, B, H, KV, T, d, dv, causal):
-    from quantizers_tpu_torch.ops.flash import flash_attention, flash_attention_plain
+def _flash_against_plain(q, k, v, sm, causal):
+    """The kernel (through the wrapper where the JAX package's blocks take
+    the shape, else through its C entry) against the plain version, each
+    (b, h, t) row within 2e-2 of its own largest |value|, and the same bits
+    on a second call."""
+    from chip_smoke import flash_c_entry
+    from quantizers_tpu_torch.ops.flash import flash_attention, flash_attention_plain, flash_reason
 
-    # q as the transformer passes it: a transpose(1, 2) view of (B, T, H, d)
-    q = torch.randn((B, T, H, d), device="cuda", generator=gen).bfloat16().transpose(1, 2)
-    k = torch.randn((B, KV, T, d), device="cuda", generator=gen).bfloat16()
-    v = torch.randn((B, KV, T, dv), device="cuda", generator=gen).bfloat16()
-    sm = 1 / math.sqrt(d)
-    before = flash_attention.launches
-    got = flash_attention(q, k, v, sm, causal)
-    assert flash_attention.launches == before + 1 and got.shape == (B, H, T, dv)
-    ref = flash_attention_plain(q, k, v, sm, causal)
+    B, H, T = q.shape[:3]
+    S, dv = k.shape[2], v.shape[3]
+    if flash_reason(q, k, v) is None:
+        before = flash_attention.launches
+        got = flash_attention(q, k, v, sm, causal)
+        assert flash_attention.launches == before + 1
+        again = flash_attention(q, k, v, sm, causal)
+        ref = flash_attention_plain(q, k, v, sm, causal)
+    else:
+        got = flash_c_entry(q, k, v, sm, causal)
+        again = flash_c_entry(q, k, v, sm, causal)
+        ref = flash_attention_plain(q, k, v, sm, causal, block_q=T, block_k=S)
+    assert got.shape == (B, H, T, dv)
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     # each (b, h, t) row against its own largest |value|, so that the long
     # causal rows, whose values are small, are held as closely as the short
-    # ones: the kernel rounds p to bf16 against a running max over 64-key
-    # tiles, the plain version over 256-key tiles (at most 2^-9 of each term
-    # apart), and each side rounds its output once
+    # ones: the kernel rounds p to bf16 against a running max over 128-key
+    # tiles (64 at d 256) and computes exp as exp2 of a product with log2 e,
+    # the plain version over 256-key tiles with exp (each at most 2^-9 of
+    # a term apart), and each side rounds its output once
     err = (got.float() - ref.float()).abs().amax(dim=3)
     assert (err <= 2e-2 * ref.float().abs().amax(dim=3)).all(), err.amax()
-    assert torch.equal(flash_attention(q, k, v, sm, causal), got)
+    assert torch.equal(again, got)
+    return got, ref
+
+
+@pytest.mark.parametrize("B,H,KV,T,d,dv,causal", FLASH_SHAPES)
+def test_flash_attention_matches_plain(gen, B, H, KV, T, d, dv, causal):
+    # q as the transformer passes it: a transpose(1, 2) view of (B, T, H, d)
+    q = torch.randn((B, T, H, d), device="cuda", generator=gen).bfloat16().transpose(1, 2)
+    k = torch.randn((B, KV, T, d), device="cuda", generator=gen).bfloat16()
+    v = torch.randn((B, KV, T, dv), device="cuda", generator=gen).bfloat16()
+    _flash_against_plain(q, k, v, 1 / math.sqrt(d), causal)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_more_keys_than_queries(gen, causal):
+    # T 256 queries over S 512 keys (causal: query t sees keys 0..t)
+    B, H, KV, T, S, d = 1, 8, 2, 256, 512, 128
+    q = torch.randn((B, T, H, d), device="cuda", generator=gen).bfloat16().transpose(1, 2)
+    k = torch.randn((B, KV, S, d), device="cuda", generator=gen).bfloat16()
+    v = torch.randn((B, KV, S, d), device="cuda", generator=gen).bfloat16()
+    _flash_against_plain(q, k, v, 1 / math.sqrt(d), causal)
+
+
+@pytest.mark.parametrize("T", [128, 256])
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_structured(gen, T, d, causal):
+    # Key s is one-hot on dim s mod d and query t one-hot on dim t mod d,
+    # large enough that the softmax keeps only the matching keys (the
+    # others' weights are below e^-40). v holds key s's index / T in column
+    # 0 and a one on column 1 + s mod 127, so a transposed or mis-swizzled
+    # fragment of q, k, p or v moves the one to another column (an error of
+    # 1/2 or more against a row maximum of at most 1), and column 0 says
+    # which keys were taken.
+    B, H, KV, dv = 1, 2, 1, 128
+    sm = 1 / math.sqrt(d)
+    idx = torch.arange(T, device="cuda")
+    q = torch.zeros((B, T, H, d), device="cuda")
+    q[:, idx, :, idx % d] = 40 / sm
+    k = torch.zeros((B, KV, T, d), device="cuda")
+    k[:, :, idx, idx % d] = 1.0
+    v = torch.zeros((B, KV, T, dv), device="cuda")
+    v[:, :, idx, 0] = idx.float() / T
+    v[:, :, idx, 1 + idx % (dv - 1)] = 1.0
+    _, ref = _flash_against_plain(q.bfloat16().transpose(1, 2), k.bfloat16(), v.bfloat16(),
+                                   sm, causal)
+    # and the plain version picks the matching keys: query t's weight lies
+    # on column 1 + t mod 127 (and on the other matching key's column)
+    rows = ref.float()[0, 0, idx, 1 + idx % (dv - 1)]
+    assert (rows >= 0.49).all(), rows.amin()
 
 
 def test_flash_attention_refuses_other_head_dims(gen):

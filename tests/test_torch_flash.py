@@ -148,3 +148,15 @@ def test_plain_refuses_what_jax_refuses_at_its_blocks(T, block):
             flash_attention_plain(tz, tz, tz, 0.1, block_q=block, block_k=block)
     else:
         assert flash_attention_plain(tz, tz, tz, 0.1, block_q=block, block_k=block).shape == tz.shape
+
+
+def test_kernel_view_copies_expanded_views():
+    # The card kernel reads q, k and v through TMA, which takes no stride of
+    # 0: an expanded view is copied, an aligned strided view is kept as it is
+    from quantizers_tpu_torch.ops.flash import _kernel_view
+
+    k = torch.zeros((2, 1, 64, 128), dtype=torch.bfloat16).expand(2, 4, 64, 128)
+    got = _kernel_view(k)
+    assert got.is_contiguous() and torch.equal(got, k)
+    q = torch.zeros((2, 64, 4, 128), dtype=torch.bfloat16).transpose(1, 2)
+    assert _kernel_view(q) is q
