@@ -1807,12 +1807,15 @@ def check_mla_decode(gen, L: int, timed: bool) -> dict:
 
 
 def slice5_kernels(gen, detail) -> dict:
-    """K9 at the four path-E decode shapes (m 8 timed, m 128 checked) and a
-    ragged one; K8 at three fill lengths (L 192 timed)."""
+    """K9 at the four path-E decode shapes (m 8 timed, m 128 checked, and
+    timed for gate|up), q_proj at the no-cache window's m 512 (timed) and a
+    ragged shape; K8 at three fill lengths (L 192 timed)."""
     rows = {"fp8_matmul": {}, "mla_decode_attention": {}}
     for label, (k, n) in FP8_SHAPES.items():
         rows["fp8_matmul"][f"{label}@m8"] = check_fp8(gen, k, n, 8, timed=True)
-        rows["fp8_matmul"][f"{label}@m128"] = check_fp8(gen, k, n, 128, timed=False)
+        rows["fp8_matmul"][f"{label}@m128"] = check_fp8(gen, k, n, 128,
+                                                        timed=label == "gate_up")
+    rows["fp8_matmul"]["q_proj@m512"] = check_fp8(gen, *FP8_SHAPES["q_proj"], 512, timed=True)
     rows["fp8_matmul"]["ragged@m3"] = check_fp8(gen, 384, 256, 3, timed=False)
     for L in MLA_FILLS:
         rows["mla_decode_attention"][f"L{L}"] = check_mla_decode(gen, L, timed=L == 192)
@@ -2172,7 +2175,8 @@ def main() -> int:
     def layer_sum(rows):
         """The timed m = 8 (one decoder layer's decode) shapes, summed."""
         timed = [r for label, r in rows.items() if "ms" in r and label.endswith("@m8")]
-        return {key: total(timed, key) for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        return {key: total(timed, key) for key in ("ms", "dev_ms", "plain_ms", "bound_ms",
+                                                   "library_ms", "library_dev_ms")}
 
     src = "quantizers_tpu_torch/csrc/"
     w8_all = dict(w8_rows, **s2["w8_matmul_f32"])

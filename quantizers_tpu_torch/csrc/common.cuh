@@ -1,6 +1,7 @@
 // Shared pieces of the weight-only matmul and slot-FFN kernels.
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is found at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -109,6 +110,78 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Staged weight tiles of the tensor-core matmuls: one 128-byte line a K
+// row (128 columns of one-byte weights).
+constexpr int kLine = 128;
+
+// Byte offset of 16-byte piece c (columns 16c ..) of K row r in a staged
+// tile: piece c of row r sits in slot c ^ (r % 8), so the 8 rows of one
+// ldmatrix matrix (one piece each) fall in 8 distinct 4-bank groups.
+__device__ __forceinline__ int w_off(int r, int c) {
+  return r * kLine + ((c ^ (r & 7)) << 4);
+}
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Is p 16-byte aligned (cp.async's 16-byte copies and TMA's bases need it)?
+static inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+// --- mbarriers and TMA tensor maps ---------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Arrive and expect `bytes` of copies to complete on the barrier.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the barrier's phase of this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\nbra WAIT;\nDONE:\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, looked up once through the runtime
+// (so the library needs no -lcuda).
+static inline EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
 }
 
 // Sum the partial results red[warp][m][c] (c < cols) of a block's WARPS

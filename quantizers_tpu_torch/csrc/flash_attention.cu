@@ -66,8 +66,6 @@
 // query heads side by side (they read each tile at about the same time),
 // and within it the heaviest (last) query blocks come first.
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is found at run time
-
 #include "common.cuh"
 #include "wgmma.cuh"
 
@@ -86,7 +84,12 @@ struct Strides {
   long long b, h, t;  // elements; the last dim is contiguous
 };
 
+using qtt::mbar_arrive;
+using qtt::mbar_expect;
+using qtt::mbar_init;
+using qtt::mbar_wait;
 using qtt::pack_bf16;
+using qtt::smem_u32;
 
 // keys a tile: 128 at d 128, 64 at d 256 (q and three K/V stages: 224 KB
 // and 208 KB of shared memory)
@@ -109,44 +112,14 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
-}
-
-// Arrive and expect `bytes` of copies to complete on the barrier.
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Wait until the barrier's phase of this parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred p;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra DONE;\nbra WAIT;\nDONE:\n}\n" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
-
 // One box of a 4-D tensor map into shared memory, completing on `bar`.
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c0, int c1, int c2,
                                          int c3, uint64_t* bar) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
-      "r"(smem_addr(bar))
+      "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -416,33 +389,13 @@ flash_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, looked up once through the runtime
-// (so the library needs no -lcuda).
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // A tensor map of a bf16 (n3, n2, rows, W) tensor with element strides
 // (s3, s2, st) and a contiguous last dim, read in boxes of box_rows x 64
 // with the 128-byte swizzle; rows past `rows` read as zeros. TMA takes no
 // stride of 0 (an expanded view): the wrapper copies such a view first.
 bool make_map(CUtensorMap* map, const void* base, int W, int rows, int n2, int n3, long long st,
               long long s2, long long s3, int box_rows) {
-  EncodeTiled fn = encoder();
+  qtt::EncodeTiled fn = qtt::tensor_map_encoder();
   if (!fn || st <= 0 || s2 <= 0 || s3 <= 0) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)W, (cuuint64_t)rows, (cuuint64_t)n2, (cuuint64_t)n3};
   const cuuint64_t strides[3] = {(cuuint64_t)st * 2, (cuuint64_t)s2 * 2, (cuuint64_t)s3 * 2};

@@ -4,12 +4,12 @@
 // Replaces quantizers_tpu/ops/kernels.py `_fp8_kernel` / `_fp8_matmul_2d`
 // (reached through `fp8_matmul`).
 //
-// x bf16 (M, K), M <= 512; w float8_e4m3fn (K, N); s f32 (K/128, N/128),
-// read as that grid (the TPU kernel expands it along N only for its
-// tiling); out bf16 (M, N). 128 | K and 128 | N. Each weight is decoded to
-// f32, multiplied by its block's scale and rounded to bf16, exactly where
-// the TPU kernel and the reference dequantize round it; the products with
-// x (bf16 x bf16, exact in f32) are summed in f32.
+// x bf16 (M, K); w float8_e4m3fn (K, N); s f32 (K/128, N/128), read as
+// that grid (the TPU kernel expands it along N only for its tiling); out
+// bf16 (M, N). 128 | K and 128 | N. Each weight is decoded to f32 (exact),
+// multiplied by its block's scale in f32 and rounded to bf16, exactly where
+// the TPU kernel and the reference dequantize round it; the products with x
+// (bf16 x bf16, exact in f32) are summed in f32.
 //
 // What bounds it on the H100 SXM: bytes. On the FP8_BLOCK MLA serving path
 // (M 8, DeepSeek-V2-Lite attention with the 8192-wide dense MLP) a decoder
@@ -17,115 +17,360 @@
 // The activations are bf16, so the FP8 tensor cores (which need both
 // operands in E4M3) do not apply: that waits for dynamic FP8 activations.
 //
-// Design: the w8 kernel's, one launch per call. A block owns 128 output
-// columns, exactly one column of scale blocks, and 8 activation rows; each
-// lane owns four columns, so a warp reads 128 contiguous bytes of a weight
-// row. A pass covers 512 K rows: each of the 8 warps requests its 64 rows
-// (inside one 128-row scale block, so one scale per warp and pass) before
-// the pass's barrier, which keeps 64 KB of weights in flight per block.
-// Four codes decode in two hardware E4M3x2 -> f16x2 conversions (exact);
-// the scaled pair rounds to bf16 in one conversion. The 8 warps' sums
-// meet in shared memory and are added in a fixed order, so the result
-// does not change from run to run.
-//
-// Left for later: mma.sync / wgmma products for M > 16, TMA staging, and
-// more blocks for the narrow calls (N 2048 makes 16 blocks for 132 SMs).
+// Design: the int8-doubled NVFP4 kernel's skeleton (nvfp4_matmul.cu, the
+// same one-byte (K, N) layout) with an E4M3 decode, fed by TMA:
+// * outT = WT . xT with mma.sync.m16n8k16 bf16 -> f32: the 16 rows of A are
+//   16 output columns of a k16 slice of W, the 8 columns of B are 8 rows of
+//   x, so a decode step at M = 8 fills the instruction with no padding.
+// * A block owns 128 output columns (8 consumer warps, one m16 tile each):
+//   one whole 128-byte line of each K row, and exactly one column of scale
+//   blocks. A stage holds 128 K rows, so a block's stage lies in one
+//   128 x 128 scale block: one f32 scale a stage, read with __ldg into
+//   registers 4 stages ahead of its use (a read from device memory outlasts
+//   a stage's products).
+// * A ninth warp is the producer: one thread loads each stage by TMA (2-D
+//   tensor maps, the 128-byte swizzle) into a ring of 2-3 stages, in two
+//   halves of 64 K rows that complete on their own mbarriers, so the
+//   products start when the first half of the first stage has landed. The
+//   x rows of a half's K range ride with it. Copies by every thread
+//   (cp.async) left the card further from the bytes bound.
+// * To fill the card with so few column tiles (16 at N = 2048), the blocks
+//   of a thread block cluster (up to 8, the fewest that put a block on
+//   every SM, chosen at launch) split K: 192 blocks for q_proj, 128 for
+//   o_proj and down, 256 for gate|up at M = 8. Each rank owns 1 / ranks of
+//   the block's outputs; every rank sends its partial sums of them to that
+//   rank (st.async into its shared memory, completing on its mbarrier),
+//   and the owner adds them in rank order and writes them. No cluster-wide
+//   barrier ends the kernel: a rank exits once its own outputs are out.
+// * A warp's A fragments come from the staged tile with one
+//   ldmatrix.x4.trans per 32 K rows (piece c of row r at c ^ (r % 8), the
+//   TMA swizzle, common.cuh: w_off): lane (g, t) gets the bytes of K rows
+//   2t, 2t+1 of columns 2g, 2g+1 of its tile, so A row g is column 2g and
+//   A row g+8 column 2g+1 (the reduction undoes this).
+// * The decode, two weights at a time: a byte permute gathers each
+//   column's pair of codes, one cvt turns a pair of E4M3 codes into f16x2
+//   (exact: every E4M3 value, subnormals too, is an f16), the pair widens
+//   to f32, two f32 multiplies by the stage's scale and one bf16x2 rounding
+//   give the reference's f32 product rounded to bf16.
+// * Each weight fragment is decoded once for all of the block's rows of x,
+//   up to 64 (one mma per 8 rows); M is tiled in 64s, so the row prefills
+//   (M 128) read the weights twice and the no-cache window (M 512) 8 times.
+// * One launch, no atomics and no workspace: two calls give the same bits.
 
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
+
+#include <atomic>
 
 #include "common.cuh"
 
 namespace {
 using namespace qtt;
 
-constexpr int kCols = 4;
-constexpr int kBlockCols = 32 * kCols;  // = the scale block's 128 columns
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kSeg = 64;                 // K rows of one warp per pass
-constexpr int kChunk = kWarps * kSeg;    // K rows per pass
-constexpr int kScaleBlock = 128;
-static_assert(kScaleBlock % kSeg == 0, "a warp segment stays inside one scale block");
-constexpr int kSmem = kWarps * kMTile * kBlockCols;  // floats: the larger use
-static_assert(kSmem >= kChunk * kMTile, "shared buffer");
+constexpr int kTiles = 8;           // m16 column tiles per block
+constexpr int kCols = 16 * kTiles;  // output columns per block
+constexpr int kRows = 128;          // K rows per stage
+constexpr int kBlock = 128;         // the side of a scale block
+constexpr int kMaxSplit = 8;        // most blocks of a cluster (the portable limit)
+constexpr int kAhead = 4;           // stages a scale is read ahead of its use
+static_assert(kCols == kBlock && kRows == kBlock, "a block's stage lies in one scale block");
+static_assert(kCols == kLine, "a staged K row is one 128-byte line (common.cuh: w_off)");
 
-// two E4M3 codes (low byte first) as floats, exactly
-__device__ __forceinline__ float2 e4m3x2(uint32_t two) {
-  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)(two & 0xFFFFu),
-                                                   __NV_E4M3);
-  return __half22float2(__half2(h));
+// One stage of the ring, as TMA writes it in the 128-byte swizzle: the fp8
+// tile [kRows][128 bytes] (piece c of row r at w_off(r, c)), then x in two
+// boxes of 64 K columns, [8 MG rows][128 bytes] each, swizzled the same way.
+// Half h of a stage is K rows 64h .. of the tile and x box h.
+template <int MG>
+struct Stage {
+  static constexpr int kWarps = kTiles;       // consumer warps: one column tile each
+  static constexpr int kThreads = 32 * kWarps + 32;  // and one producer warp
+  static constexpr int kW = kRows * kCols;
+  static constexpr int kXBox = 8 * MG * 128;
+  static constexpr int kBytes = kW + 2 * kXBox;
+  // the ring's depth: 2 blocks fit an SM at every MG (deeper rings were
+  // slower on the H100)
+  static constexpr int kStages = MG <= 4 ? 3 : 2;
+  // the block's f32 outputs: each rank of the cluster receives every
+  // rank's share of its 1 / ranks of them
+  static constexpr int kOut = 8 * MG * kCols;
+  // the ring, the reduction buffer, the mbarriers (full for each half
+  // stage, empty a stage, one for the reduction), and room to align the
+  // ring to 1024
+  static constexpr int kSmem = kStages * kBytes + kOut * 4 + (3 * kStages + 1) * 8 + 1024;
+  static_assert(kBytes % 1024 == 0 && kSmem <= 113 * 1024, "ring");
+};
+
+// One box of a 2-D tensor map (coordinates c0 innermost) into shared
+// memory, completing on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
 }
 
-// s * (a, b) rounded to bf16 and widened again
-__device__ __forceinline__ float2 scaled_bf16(float2 v, float s) {
-  return __bfloat1622float2(__float22bfloat162_rn(make_float2(v.x * s, v.y * s)));
+// The address of `p` (this block's shared memory) in the shared memory of
+// block `rank` of the cluster.
+__device__ __forceinline__ uint32_t map_rank(const void* p, uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_u32(p)), "r"(rank));
+  return a;
 }
 
-__global__ void __launch_bounds__(kThreads)
-fp8_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
-           const float* __restrict__ scale, __nv_bfloat16* __restrict__ out,
-           int M, int K, int N) {
-  __shared__ __align__(16) float smem[kSmem];
-  float* xs = smem;
+// Store two floats at `addr` in the shared memory of a block of the
+// cluster, completing their 8 bytes on that block's mbarrier at `bar`.
+__device__ __forceinline__ void st_async_f32x2(uint32_t addr, float a, float b, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], {%1, %2}, [%3];\n" ::"r"(
+          addr),
+      "f"(a), "f"(b), "r"(bar)
+      : "memory");
+}
+
+// The bytes of an ldmatrix.trans register, (k, c0), (k, c1), (k+1, c0),
+// (k+1, c1), E4M3 codes, times the stage's scale s, as the bf16 pairs
+// lo = (w(k, c0), w(k+1, c0)) and hi = (w(k, c1), w(k+1, c1)): each code
+// exact in f16 and in f32, the product rounded to f32 and then to bf16.
+__device__ __forceinline__ void dequant_pairs(uint32_t r, float s, uint32_t& lo, uint32_t& hi) {
+  const uint32_t p = __byte_perm(r, 0u, 0x3120);  // column c0's pair low, c1's high
+  const float2 a = __half22float2(
+      __half2(__nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)(p & 0xFFFFu), __NV_E4M3)));
+  const float2 b = __half22float2(
+      __half2(__nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)(p >> 16), __NV_E4M3)));
+  lo = as_u32(__float22bfloat162_rn(make_float2(a.x * s, a.y * s)));
+  hi = as_u32(__float22bfloat162_rn(make_float2(b.x * s, b.y * s)));
+}
+
+// One block: 128 columns by 8 MG rows of x over its cluster rank's share
+// of K (gridDim.z blocks a cluster split K). Warps 0-7 multiply (warp w:
+// columns 16w ..); warp 8 is the producer, one of its threads keeps the
+// ring full by TMA.
+template <int MG>
+__global__ void __launch_bounds__(Stage<MG>::kThreads, 2)
+fp8_kernel(const __grid_constant__ CUtensorMap tw, const __grid_constant__ CUtensorMap tx,
+           const float* __restrict__ scale, __nv_bfloat16* __restrict__ out, int M, int K,
+           int N) {
+  using St = Stage<MG>;
+  constexpr int S = St::kStages, W = St::kWarps;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  // the swizzle atoms start on 1024-byte boundaries
+  uint8_t* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  float* red = reinterpret_cast<float*>(ring + S * St::kBytes);  // [ranks][kOut / ranks]
+  uint64_t* full = reinterpret_cast<uint64_t*>(red + St::kOut);  // [slot][half] has landed
+  uint64_t* empty = full + 2 * S;  // every consumer warp is done with a stage
+  uint64_t* reduced = empty + S;  // every rank's share of this block's outputs has landed
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int m0 = blockIdx.y * kMTile;
-  const int col0 = blockIdx.x * kBlockCols;
-  const int col = col0 + lane * kCols;
-  const int s0 = warp * kSeg;  // this warp's segment of every pass
-  const int n_sblocks = N / kScaleBlock;
+  const int gid = lane / 4, t = lane % 4;
+  const int n0 = blockIdx.x * kCols;
+  const int m0 = blockIdx.y * 8 * MG;
+  // this block's stages: its share (rank of ranks) of K's
+  const int ranks = gridDim.z, rank = blockIdx.z;
+  const int all = K / kRows;
+  const int s0 = all * rank / ranks;
+  const int nk = all * (rank + 1) / ranks - s0;
 
-  float acc[kMTile][kCols];
-#pragma unroll
-  for (int m = 0; m < kMTile; ++m)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[m][j] = 0.f;
+  if (warp == W && lane == 0) {
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(&tw) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(&tx) : "memory");
+    for (int i = 0; i < S; ++i) {
+      mbar_init(full + 2 * i, 1);
+      mbar_init(full + 2 * i + 1, 1);
+      mbar_init(empty + i, W);
+    }
+    mbar_init(reduced, 1);
+    mbar_expect(reduced, St::kOut * 4);  // every rank's partials of this rank's outputs
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // the other ranks may send to `reduced` once every rank has passed here
+  // (the wait comes before the first send)
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 
-  for (int c0 = 0; c0 < K; c0 += kChunk) {
-    const int rows = min(kChunk, K - c0);  // a multiple of 128, so of kSeg
-    const bool mine = s0 < rows;
-    const uint8_t* wp = w + (size_t)(c0 + s0) * N + col;
-    uint32_t wr[kSeg];
+  float acc[MG][4];
 #pragma unroll
-    for (int i = 0; i < kSeg; ++i)
-      wr[i] = mine ? *reinterpret_cast<const uint32_t*>(wp + (size_t)i * N) : 0u;
-    __syncthreads();  // the previous pass is done with the staged x
-    stage_x(xs, x, M, K, m0, c0, rows);
-    __syncthreads();
-    if (!mine) continue;
-    const float s = scale[(size_t)((c0 + s0) / kScaleBlock) * n_sblocks + blockIdx.x];
-#pragma unroll  // whole: wr[] stays in registers
-    for (int i = 0; i < kSeg; ++i) {
-      const float2 w01 = scaled_bf16(e4m3x2(wr[i]), s);
-      const float2 w23 = scaled_bf16(e4m3x2(wr[i] >> 16), s);
-      const float wv[kCols] = {w01.x, w01.y, w23.x, w23.y};
-      float xv[kMTile];
-      load_x8(xs + (s0 + i) * kMTile, xv);
+  for (int mg = 0; mg < MG; ++mg)
 #pragma unroll
-      for (int m = 0; m < kMTile; ++m)
+    for (int j = 0; j < 4; ++j) acc[mg][j] = 0.f;
+  const int col = warp * 16 + 2 * gid;  // A rows gid, gid + 8: columns col, col + 1
+
+  if (warp == W) {
+    // the producer: stage s0 + s (K rows from (s0 + s) * kRows) into slot
+    // s % S, a half at a time, once the consumers are done with its last
+    // use; rows of x past M arrive as zeros, so they add 0
+    if (lane == 0) {
+      for (int s = 0; s < nk; ++s) {
+        const int slot = s % S;
+        if (s >= S) mbar_wait(empty + slot, (s / S - 1) & 1);
+        uint8_t* base = ring + slot * St::kBytes;
+        const int k0 = (s0 + s) * kRows;
+        for (int h = 0; h < 2; ++h) {
+          uint64_t* bar = full + 2 * slot + h;
+          mbar_expect(bar, St::kBytes / 2);
+          tma_load_2d(base + h * (St::kW / 2), &tw, n0, k0 + h * 64, bar);
+          tma_load_2d(base + St::kW + h * St::kXBox, &tx, k0 + h * 64, m0, bar);
+        }
+      }
+    }
+  } else {
+    // the scale of stage s: row s0 + s, column blockIdx.x of the grid,
+    // read kAhead stages ahead of its use
+    const int sblocks = N / kBlock;
+    const float* sp = scale + (size_t)s0 * sblocks + blockIdx.x;
+    auto scale_of = [&](int s) { return s < nk ? __ldg(sp + (size_t)s * sblocks) : 0.f; };
+    float ahead[kAhead];
 #pragma unroll
-        for (int j = 0; j < kCols; ++j) acc[m][j] = fmaf(xv[m], wv[j], acc[m][j]);
+    for (int j = 0; j < kAhead; ++j) ahead[j] = scale_of(j);
+    for (int s = 0; s < nk; ++s) {
+      const int slot = s % S;
+      const float sc = ahead[0];
+#pragma unroll
+      for (int j = 0; j + 1 < kAhead; ++j) ahead[j] = ahead[j + 1];
+      ahead[kAhead - 1] = scale_of(s + kAhead);
+      const uint8_t* base = ring + slot * St::kBytes;
+#pragma unroll
+      for (int kr = 0; kr < kRows; kr += 32) {
+        if (kr % 64 == 0) mbar_wait(full + 2 * slot + kr / 64, (s / S) & 1);  // its half
+        uint32_t wr[4];
+        ldmatrix_x4_trans(wr, base + w_off(kr + lane, warp));
+#pragma unroll
+        for (int st = 0; st < 2; ++st) {
+          const int kk = kr + st * 16;  // the k16 step's first row in the stage
+          uint32_t a[4];
+          dequant_pairs(wr[2 * st], sc, a[0], a[1]);
+          dequant_pairs(wr[2 * st + 1], sc, a[2], a[3]);
+          // x row 8 mg + gid, K columns kk + 2t, + 1 and kk + 8 + 2t, + 1:
+          // 16-byte pieces c and c + 1 of that row in its box, swizzled by
+          // the row mod 8
+          const uint8_t* xb = base + St::kW + (kk / 64) * St::kXBox + gid * 128 + 4 * t;
+          const int c = (kk % 64) / 8;
+#pragma unroll
+          for (int mg = 0; mg < MG; ++mg) {
+            const uint8_t* xr = xb + mg * 8 * 128;
+            mma_bf16(acc[mg], a, *reinterpret_cast<const uint32_t*>(xr + ((c ^ gid) << 4)),
+                     *reinterpret_cast<const uint32_t*>(xr + (((c + 1) ^ gid) << 4)));
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + slot);  // this warp is done with the stage
     }
   }
-  __syncthreads();  // every warp is done with the staged x: reuse it
-  float* red = smem;  // [warp][m][kBlockCols]
+
+  // The cluster's shares of K are added in a fixed order. Output e of the
+  // block (row e / 128, column e % 128) belongs to rank e / share: every
+  // rank stores its partial sum of e into slot rank of that rank's buffer,
+  // completing on its `reduced` barrier; each rank then adds its outputs'
+  // partials rank by rank and writes them. No rank reads another's shared
+  // memory, so each may exit as soon as its own outputs are written.
+  const int share = St::kOut / ranks;
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  if (warp < W) {
+    // c0, c2 are rows 2t of columns col, col + 1; c1, c3 rows 2t + 1
 #pragma unroll
-  for (int m = 0; m < kMTile; ++m)
+    for (int mg = 0; mg < MG; ++mg)
 #pragma unroll
-    for (int j = 0; j < kCols; ++j)
-      red[(warp * kMTile + m) * kBlockCols + lane * kCols + j] = acc[m][j];
-  __syncthreads();
-  reduce_store<kWarps>(red, kBlockCols, out, M, N, m0, col0);
+      for (int h = 0; h < 2; ++h) {
+        const int e = (mg * 8 + 2 * t + h) * kCols + col;
+        const int owner = e / share;
+        st_async_f32x2(map_rank(red + rank * share + e - owner * share, owner), acc[mg][h],
+                       acc[mg][2 + h], map_rank(reduced, owner));
+      }
+  }
+  mbar_wait(reduced, 0);
+  for (int j = 2 * threadIdx.x; j < share; j += 2 * St::kThreads) {
+    const int e = rank * share + j;
+    const int m = e / kCols, c = e % kCols;
+    if (m0 + m >= M) break;  // j grows with m
+    float2 sum = make_float2(0.f, 0.f);
+    for (int r = 0; r < ranks; ++r) {
+      const float2 v = *reinterpret_cast<const float2*>(red + r * share + j);
+      sum.x += v.x;
+      sum.y += v.y;
+    }
+    *reinterpret_cast<__nv_bfloat162*>(out + (size_t)(m0 + m) * N + n0 + c) =
+        __floats2bfloat162_rn(sum.x, sum.y);
+  }
+}
+
+// A tensor map of a row-major (rows, cols) matrix of `type`, `row_bytes`
+// apart, read in boxes of box_rows x box_cols (box_cols of 128 bytes) with
+// the 128-byte swizzle; rows past `rows` read as zeros.
+bool make_map_2d(CUtensorMap* map, CUtensorMapDataType type, const void* base, int cols,
+                 int rows, long long row_bytes, int box_cols, int box_rows) {
+  EncodeTiled fn = tensor_map_encoder();
+  if (!fn) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int MG>
+int launch(const void* x, const void* w, const void* scale, void* out, int M, int K, int N,
+           cudaStream_t stream) {
+  constexpr int smem = Stage<MG>::kSmem;
+  CUtensorMap tw, tx;
+  if (!make_map_2d(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, N, K, N, kCols, kRows / 2) ||
+      !make_map_2d(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M, 2LL * K, 64, 8 * MG))
+    return (int)cudaErrorInvalidValue;
+  // the shared-memory limit is raised, and the SMs counted, once per device
+  static std::atomic<uint64_t> raised{0};
+  static std::atomic<int> sms[64];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  const uint64_t bit = 1ull << (dev & 63);
+  if (!(raised.load() & bit)) {
+    e = cudaFuncSetAttribute(fp8_kernel<MG>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    int count = 0;
+    e = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    sms[dev & 63].store(count);
+    raised.fetch_or(bit);
+  }
+  // split K over a cluster of the fewest blocks (a power of two, at most
+  // 8) that puts a block on every SM, each block keeping 2 stages or more:
+  // all blocks then run in one wave (2 fit an SM)
+  const int tiles = (N / kCols) * ((M + 8 * MG - 1) / (8 * MG));
+  const int stages = K / kRows;
+  int split = 1;
+  while (split < kMaxSplit && tiles * split < sms[dev & 63].load() && stages >= 4 * split)
+    split *= 2;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(N / kCols, (M + 8 * MG - 1) / (8 * MG), split);
+  cfg.blockDim = dim3(Stage<MG>::kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = split;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, fp8_kernel<MG>, tw, tx, static_cast<const float*>(scale),
+                                 static_cast<__nv_bfloat16*>(out), M, K, N);
 }
 
 }  // namespace
 
 extern "C" int qtt_fp8_matmul(const void* x, const void* w, const void* scale, void* out,
                               int M, int K, int N, void* stream) {
-  if (M <= 0 || K <= 0 || K % kScaleBlock || N % kBlockCols) return (int)cudaErrorInvalidValue;
-  const dim3 grid(N / kBlockCols, (M + kMTile - 1) / kMTile);
-  fp8_kernel<<<grid, kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(w),
-      static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(out), M, K, N);
-  return (int)cudaGetLastError();
+  // TMA reads x and w from 16-byte aligned bases; f32 scales, bf16 pairs out
+  if (M <= 0 || K <= 0 || N <= 0 || K % kBlock || N % kBlock) return (int)cudaErrorInvalidValue;
+  if (!aligned16(x) || !aligned16(w) || (reinterpret_cast<uintptr_t>(scale) & 3u) ||
+      (reinterpret_cast<uintptr_t>(out) & 3u))
+    return (int)cudaErrorMisalignedAddress;
+  const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  // rows of x per block: the fewest 8-row groups that hold M, up to 64
+  if (M <= 8) return launch<1>(x, w, scale, out, M, K, N, st);
+  if (M <= 16) return launch<2>(x, w, scale, out, M, K, N, st);
+  if (M <= 32) return launch<4>(x, w, scale, out, M, K, N, st);
+  return launch<8>(x, w, scale, out, M, K, N, st);
 }

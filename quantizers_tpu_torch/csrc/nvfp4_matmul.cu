@@ -168,19 +168,10 @@ struct IStage {
   static_assert(8 * MG * kICols * 4 <= kSmem, "reduction buffer");
 };
 
-// Byte offset of 16-byte piece c (columns 16c ..) of K row r in a staged
-// tile: piece c of row r sits in slot c ^ (r % 8), so the 8 rows of one
-// ldmatrix matrix (one piece each) fall in 8 distinct 4-bank groups.
-__device__ __forceinline__ int w_off(int r, int c) {
-  return r * kICols + ((c ^ (r & 7)) << 4);
-}
+static_assert(kICols == kLine, "a staged K row is one 128-byte line (common.cuh: w_off)");
 
 __device__ __forceinline__ __nv_bfloat162 as_bf162(uint32_t u) {
   return *reinterpret_cast<const __nv_bfloat162*>(&u);
-}
-
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 
@@ -405,8 +396,6 @@ int launch_i8_rows(const void* x, const void* w8, const void* scale, void* out, 
   if (M <= 32) return launch_i8<4, kG16>(x, w8, scale, out, M, K, N, g, stream);
   return launch_i8<8, kG16>(x, w8, scale, out, M, K, N, g, stream);
 }
-
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
 }  // namespace
 

@@ -347,9 +347,15 @@ def test_moe_slot_gu_ffn_matches_plain(gen, S, D, F, E):
 
 
 #: (m, k, n): the four FP8_BLOCK MLA decode calls (q_proj, o_proj, the fused
-#: gate|up, down_proj), the batcher's row prefill width, and small ragged m
+#: gate|up, down_proj), the batcher's row prefill width, small ragged m, the
+#: kernel's row-group edges (m 16, 32, 64, 65: 8-row groups of 2, 4, 8 and
+#: two 64-row tiles) and the no-cache window's m 512, one column tile
+#: (n 128), fewer stages than a full cluster split (k 128, 384), and
+#: kv_b_proj (k 512, n 4096), which the no-cache window reaches
 FP8_SHAPES = [(8, 2048, 3072), (8, 2048, 2048), (8, 2048, 16384), (8, 8192, 2048),
-              (128, 2048, 16384), (3, 384, 256), (130, 256, 384)]
+              (128, 2048, 16384), (3, 384, 256), (130, 256, 384), (16, 1024, 256),
+              (32, 768, 384), (64, 512, 384), (65, 2048, 128), (512, 2048, 3072),
+              (8, 128, 512), (9, 384, 256), (8, 512, 4096)]
 
 
 @pytest.mark.parametrize("m,k,n", FP8_SHAPES)
@@ -365,6 +371,42 @@ def test_fp8_kernel_matches_plain(gen, m, k, n):
     assert K.fp8_matmul.launches == before + 1
     _close(got, K.fp8_matmul_plain(x, lin.weight, lin.scale), 1e-2)
     assert torch.equal(K.fp8_matmul(x, lin), got)
+
+
+def test_fp8_kernel_reads_out_every_weight_exactly(gen):
+    """One-hot rows of x read the dequantized weights out through the
+    kernel: every non-NaN E4M3 code (254 of 256; 0x7F and 0xFF are NaN)
+    times f32 block scales from 2^-20 up to the largest at which 448 x
+    scale stays finite in bf16. The output must equal the plain version's
+    bit for bit (a single product each, so no sum order enters), which pins
+    the fragment mapping, the swizzle, the scale of each stage and the
+    decode's two roundings (f32 product, then bf16)."""
+    m, k, n = 8, 512, 256
+    codes = torch.tensor([c for c in range(256) if c not in (0x7F, 0xFF)], dtype=torch.uint8)
+    w8 = codes[torch.arange(k * n).reshape(k, n) % len(codes)].view(torch.float8_e4m3fn).cuda()
+    # 448 x s rounds to bf16 inf from (2 - 2^-8) 2^127 up: the top scale is
+    # the largest f32 below (2 - 2^-8) 2^127 / 448 = 1.140625 x 2^119
+    top = np.nextafter(np.float32(1.140625 * 2.0 ** 119), np.float32(0))
+    rng = np.random.default_rng(7)
+    mant = rng.uniform(1, 2, (k // 128, n // 128)).astype(np.float32)
+    expo = np.array([[-20, -9], [-1, 30], [77, 100], [118, 0]])
+    s = (mant * np.exp2(expo.astype(np.float32))).astype(np.float32)
+    s[3, 1] = top
+    scale = torch.from_numpy(s).cuda()
+    lin = QuantLinear(kind="fp8", weight=w8, scale=scale,
+                      meta=(("k", k), ("n", n), ("strategy", "block"), ("block_k", 128),
+                            ("block_n", 128)))
+    up = scale.repeat_interleave(128, dim=0).repeat_interleave(128, dim=1)
+    wq = (w8.float() * up).bfloat16()
+    assert torch.isfinite(wq.float()).all() and float(wq.float().abs().max()) > 2.0 ** 127
+    rows = torch.arange(m, device="cuda")
+    for r0 in range(0, k, m):
+        x = torch.zeros((m, k), dtype=torch.bfloat16, device="cuda")
+        x[rows, r0 + rows] = 1
+        got = K.fp8_matmul(x, lin)
+        ref = K.fp8_matmul_plain(x, w8, scale)
+        assert torch.equal(ref, wq[r0:r0 + m])
+        assert torch.equal(got, ref), (r0, (got != ref).nonzero()[:4].tolist())
 
 
 @pytest.mark.parametrize("B,H,r,dp,S", [(8, 16, 512, 128, 512), (3, 4, 128, 256, 64)])
