@@ -861,9 +861,8 @@ def slice2_kernels(gen, detail) -> dict:
         for label, (k, n) in decode_shapes.items():
             rows[key][f"{label}@m8"] = check_nvfp4(gen, k, n, 8, layout, timed=True)
         for label, (k, n) in expert_shapes.items():
-            # K5b's row prefills run these; K5a's are checked, not timed
-            rows[key][f"{label}@m128"] = check_nvfp4(gen, k, n, 128, layout,
-                                                     timed=layout == "int8")
+            # the row prefills of paths B (packed) and C (int8) run these
+            rows[key][f"{label}@m128"] = check_nvfp4(gen, k, n, 128, layout, timed=True)
         for label, r in rows[key].items():
             log(f"[kernels] {key} {label}: {r}")
     plain8 = lambda x, lin: K.w8_matmul_plain(x, lin.weight, lin.scale,  # noqa: E731
@@ -879,6 +878,77 @@ def slice2_kernels(gen, detail) -> dict:
         for label, r in rows[key].items():
             log(f"[kernels] {key} {label}: {r}")
     detail["kernels"].update(rows)
+    return rows
+
+
+def offset_view(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s values in a contiguous view at element offset 3 of a flat
+    buffer: a base that is not 16-byte aligned."""
+    buf = torch.empty(t.numel() + 3, dtype=t.dtype, device=t.device)
+    view = buf[3:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def offset_views(gen, detail) -> dict:
+    """Phase 3's last part: each wrapper that aligns its inputs by copying
+    them (the matmuls through ``_flatten_x``, K4 through ``_kernel_view``,
+    K8's q and new rows), called once with every input at an unaligned
+    base, must give the aligned call's bits; K8 refuses an unaligned cache
+    with a ValueError before it launches."""
+    from quantizers_tpu_torch.ops import kernels as K
+    from quantizers_tpu_torch.ops.flash import flash_attention
+
+    dev = gen.device
+    rows = {}
+
+    def same(name, got, want, inputs):
+        check(all(t.data_ptr() % 16 for t in inputs), f"{name}: the offset view is aligned")
+        ok = bool(torch.equal(got, want))
+        check(ok, f"{name}: a call on offset views differs from the aligned call")
+        rows[name] = {"offset_bytes": [t.data_ptr() % 16 for t in inputs], "equal": ok}
+
+    matmuls = {"w4_matmul": (K.w4_matmul, w4_linear(gen, 2560, 6144, GROUP, random_scale=True)),
+               "w8_matmul": (K.w8_matmul, w8_linear(gen, 2560, 6144)),
+               "nvfp4_matmul": (K.nvfp4_matmul, nvfp4_linear(gen, 2560, 6144)),
+               "nvfp4_i8_matmul": (K.nvfp4_i8_matmul, nvfp4_linear(gen, 2560, 6144, "int8")),
+               "fp8_matmul": (K.fp8_matmul, fp8_linear(gen, 2048, 3072))}
+    for name, (wrapper, lin) in matmuls.items():
+        x = torch.randn((8, lin.in_features), device=dev, generator=gen).bfloat16()
+        xo = offset_view(x)
+        same(name, wrapper(xo, lin), wrapper(x, lin), [xo])
+
+    q, k, v = (torch.randn((1, 8, 256, 128), device=dev, generator=gen).bfloat16()
+               for _ in range(3))
+    qkv = [offset_view(t) for t in (q, k, v)]
+    same("flash_attention", flash_attention(*qkv, 0.0884), flash_attention(q, k, v, 0.0884), qkv)
+
+    B, H, r, dp, S = BATCH, MLA_GEOMETRY["num_heads"], MLA_GEOMETRY["kv_lora_rank"], 128, MAX_LEN
+    ins = [torch.randn(shape, device=dev, generator=gen).bfloat16()
+           for shape in ((B, H, r), (B, H, dp), (B, r), (B, dp))]
+    cc = torch.randn((B, 1, S, r), device=dev, generator=gen).bfloat16()
+    cp = torch.randn((B, 1, S, dp), device=dev, generator=gen).bfloat16()
+    lengths = torch.full((B,), 192, dtype=torch.int32, device=dev)
+    offs = [offset_view(t) for t in ins]
+    same("mla_decode_attention",
+         K.mla_decode_attention(*offs, cc.clone(), cp.clone(), lengths, 0.0722),
+         K.mla_decode_attention(*ins, cc.clone(), cp.clone(), lengths, 0.0722), offs)
+    for which in ("cache_c", "cache_p"):
+        caches = {"cache_c": cc.clone(), "cache_p": cp.clone()}
+        caches[which] = offset_view(caches[which])
+        before = K.mla_decode_attention.launches
+        try:
+            K.mla_decode_attention(*ins, caches["cache_c"], caches["cache_p"], lengths, 0.0722)
+            refused = False
+        except ValueError as e:
+            refused = which in str(e)
+        check(refused and K.mla_decode_attention.launches == before,
+              f"mla_decode_attention: an unaligned {which} was not refused by a ValueError")
+        rows[f"mla_decode_attention {which}"] = {"refused": refused}
+    torch.cuda.synchronize()
+    for name, row in rows.items():
+        log(f"[kernels] offset view {name}: {row}")
+    detail["offset_views"] = rows
     return rows
 
 
@@ -2122,6 +2192,7 @@ def main() -> int:
     s2 = slice2_kernels(gen, detail)
     fl = flash_kernels(gen, detail)
     s5 = slice5_kernels(gen, detail)
+    offset_views(gen, detail)
 
     # phase 4: serve, slice 1
     spec, raw, counts = serve_phase(gen, detail)

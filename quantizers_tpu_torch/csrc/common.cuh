@@ -164,6 +164,24 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       : "memory");
 }
 
+// The address of `p` (this block's shared memory) in the shared memory of
+// block `rank` of the cluster.
+__device__ __forceinline__ uint32_t map_rank(const void* p, uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_u32(p)), "r"(rank));
+  return a;
+}
+
+// Store two floats at `addr` in the shared memory of a block of the
+// cluster, completing their 8 bytes on that block's mbarrier at `bar`.
+__device__ __forceinline__ void st_async_f32x2(uint32_t addr, float a, float b, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], {%1, %2}, [%3];\n" ::"r"(
+          addr),
+      "f"(a), "f"(b), "r"(bar)
+      : "memory");
+}
+
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,

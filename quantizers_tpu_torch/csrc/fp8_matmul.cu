@@ -111,24 +111,6 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
       : "memory");
 }
 
-// The address of `p` (this block's shared memory) in the shared memory of
-// block `rank` of the cluster.
-__device__ __forceinline__ uint32_t map_rank(const void* p, uint32_t rank) {
-  uint32_t a;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_u32(p)), "r"(rank));
-  return a;
-}
-
-// Store two floats at `addr` in the shared memory of a block of the
-// cluster, completing their 8 bytes on that block's mbarrier at `bar`.
-__device__ __forceinline__ void st_async_f32x2(uint32_t addr, float a, float b, uint32_t bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], {%1, %2}, [%3];\n" ::"r"(
-          addr),
-      "f"(a), "f"(b), "r"(bar)
-      : "memory");
-}
-
 // The bytes of an ldmatrix.trans register, (k, c0), (k, c1), (k+1, c0),
 // (k+1, c1), E4M3 codes, times the stage's scale s, as the bf16 pairs
 // lo = (w(k, c0), w(k+1, c0)) and hi = (w(k, c1), w(k+1, c1)): each code

@@ -36,12 +36,13 @@
 // row of the batch), splitting S over blocks for long caches, cp.async
 // staging.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
+
+using qtt::aligned16;
 
 typedef __nv_bfloat16 bf16;
 
@@ -179,6 +180,10 @@ extern "C" int qtt_mla_decode_attention(const void* q_abs, const void* q_pe, con
   if (B <= 0 || H <= 0 || S <= 0 || S > kMaxS || r <= 0 || r % 128 || r > kMaxR ||
       dp <= 0 || dp % 128 || dp > kMaxDP)
     return (int)cudaErrorInvalidValue;
+  // rows are read as uint4: every base must be 16-byte aligned
+  if (!aligned16(q_abs) || !aligned16(q_pe) || !aligned16(new_c) || !aligned16(new_p) ||
+      !aligned16(cache_c) || !aligned16(cache_p) || !aligned16(ctx))
+    return (int)cudaErrorMisalignedAddress;
   const dim3 grid(H, B);
   mla_dec_kernel<<<grid, kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q_abs), static_cast<const bf16*>(q_pe),

@@ -6,7 +6,8 @@
 //
 // * qtt_nvfp4_matmul: packed uint8 (K/2, N), split-half: the low nibble of
 //   row p is the E2M1 code of W[p, n], the high nibble that of W[K/2 + p, n].
-//   Effective scales bf16 (K/g, N) (the global scale folded in), g = 16.
+//   Effective scales bf16 (K/g, N) (the global scale folded in); NVFP4's
+//   g is 16, and any g with 2g | K is taken.
 // * qtt_nvfp4_i8_matmul: int8 (K, N) holding 2x the E2M1 value, with the
 //   scales halved, so value * scale is the same product.
 //
@@ -18,162 +19,142 @@
 // gate|up call (K 2560, N 19456) reads 24.9 MB packed plus 6.2 MB of scales
 // (9.3 us at 3.35 TB/s); the int8 layout reads twice the payload.
 //
-// The packed kernel does its arithmetic on the CUDA cores: a decode, a
-// scale, a bf16 rounding and 8 FMAs per weight at M = 8, so it is bound by
-// those operations before it reaches the memory bound. Its design is the w4
-// kernel's (w4_matmul.cu): 32 columns per block, one per lane, 16 warps on
-// disjoint K segments of every pass, two activation planes. A segment lies
-// in one scale group, so each lane loads one scale per segment. The E2M1
-// decode is a shift and a mask of a constant in registers (common.cuh:
-// fp4_value). Left for later in the packed kernel: tensor-core products
-// (E2M1 -> bf16 in registers feeding mma), TMA / cp.async staging, and a
-// Hopper relayout of the codes.
-//
-// The int8 kernel is built for the bytes bound, on the tensor cores:
+// Both kernels share one design, built for the bytes bound on the tensor
+// cores:
 // * outT = WT . xT with mma.sync.m16n8k16 bf16 -> f32: the 16 rows of A are
 //   16 output columns of a k16 slice of W, the 8 columns of B are 8 rows of
 //   x, so a decode step at M = 8 fills the instruction with no padding.
-// * A block owns 128 output columns (8 warps, one m16 tile each), so each K
-//   row of its tile is one whole 128-byte line. Narrower strips (16 or 32
-//   bytes of a row a block, tried first) left the H100 at 1.0-1.4 TB/s.
+// * A block owns 128 output columns (8 warps, one m16 tile each), so each
+//   staged row of its tile is one whole 128-byte line. Narrower strips (16
+//   or 32 bytes of a row a block, tried first) left the H100 at 1.0-1.4
+//   TB/s.
 // * To fill the card with so few column tiles (20 at N = 2560), the blocks
 //   of a thread block cluster (up to 8, the fewest that put a block on
-//   every SM, chosen at launch) split K, and add their sums through
-//   distributed shared memory, in a fixed order, in the first block:
-//   160 blocks at N = 2560, 192 at 6144, 152 at 19456.
-// * The int8 (K, N) tile is staged with cp.async, 16 bytes a copy, 8
-//   threads a 128-byte row, in a ring of 3-4 stages of 128 K rows (48 KB of
-//   weights in flight a block at M <= 16 while one stage is multiplied).
-//   The x rows and the scale rows of the same K range ride in the same
-//   stage, as bf16. One __syncthreads a stage; two blocks fit an SM.
+//   every SM, chosen at launch) split K: 160 blocks at N = 2560, 192 at
+//   6144, 152 at 19456 (304 for the packed kernel, whose blocks then run 2
+//   an SM). Each rank owns 1 / ranks of the block's outputs; every rank
+//   pushes its partial sums of them to that rank (st.async into its shared
+//   memory, completing on its mbarrier), and the owner adds them in rank
+//   order and writes them. No closing cluster barrier: a rank exits once
+//   its own outputs are out (the reduction of K9, fp8_matmul.cu).
+// * The weight tile is staged with cp.async, 16 bytes a copy, 8 threads a
+//   128-byte row, in a ring of stages of 128 K rows; the x rows and the
+//   scale rows of the same K range ride in the same stage, as bf16. One
+//   __syncthreads a stage; two blocks fit an SM.
 // * A warp's A fragments come from the staged tile with one
-//   ldmatrix.x4.trans per 32 K rows: lane (g, t) gets the bytes of K rows
+//   ldmatrix.x4.trans per 32 staged rows: lane (g, t) gets the bytes of rows
 //   2t, 2t+1 of columns 2g, 2g+1 of its tile, so A row g is column 2g and
 //   A row g+8 is column 2g+1 (the store undoes this). The 16-byte pieces
 //   of each staged row are swizzled by the row's index mod 8 (w_off), so
 //   the reads are free of bank conflicts, as are the B reads (x rows
 //   padded by 16 bytes).
-// * Dequantization in registers, two weights an instruction: a byte v
-//   (|v| <= 12 in this layout) becomes v + 64 by (b & 0x7F) ^ 0x40, a byte
-//   permute puts 0x43 above it (the bf16 192 + v), a bf16x2 subtract of 192
-//   gives v exactly and a bf16x2 multiply by the scale pair rounds the exact
-//   product once: the reference's f32 product rounded to bf16. With g = 16
-//   (NVFP4's group, the only one the serving layouts build) a k16 step
-//   needs one scale per column, two per lane, read as one bf16 pair; any
+// * Each weight is dequantized in registers to the exact bf16 value, and a
+//   bf16x2 multiply by the scale pair rounds the exact product once: the
+//   reference's f32 product rounded to bf16. With g = 16 (NVFP4's group,
+//   the only one the serving layouts build) a k16 step needs one scale per
+//   column, two per lane, read as one bf16 pair from the staged rows; any
 //   other g reads the scale of each K row from device memory (right, not
 //   tuned).
 // * Each weight fragment is dequantized once for all of the block's rows
 //   of x, up to 64 (one mma per 8 rows); M is tiled in 64s, so the row
 //   prefills' expert calls (M 128) read the weights twice, not 16 times.
 // * One launch, no atomics and no workspace: two calls give the same bits.
-
-#include <cooperative_groups.h>
+//
+// The int8 kernel's stage is 128 rows of the (K, N) tile. Its
+// dequantization takes two weights an instruction: a byte v (|v| <= 12 in
+// this layout) becomes v + 64 by (b & 0x7F) ^ 0x40, a byte permute puts
+// 0x43 above it (the bf16 192 + v), and a bf16x2 subtract of 192 gives v.
+//
+// The packed kernel's stage is 64 rows of the (K/2, N) tile, which hold
+// 128 K rows: a byte's low nibble is row p of the lo plane (K row p), its
+// high nibble row p of the hi plane (K row K/2 + p). So a stage carries two
+// planes of x (columns k0.. and K/2 + k0..) and, at g = 16, two planes of
+// scale rows, and each ldmatrix register feeds two mma per 8 rows of x,
+// one a plane. The E2M1 decode (sm_90a has no E2M1 conversion; cvt's
+// e2m1x2 forms need sm_100a) builds each bf16x2 pair from the nibbles in
+// three integer instructions: the sign to bit 15, the 3-bit magnitude code
+// to bits 6-8. That bf16 is the E2M1 value times 2^-126 (0.5 becomes the
+// subnormal 2^-127): a multiply by 2^126 makes it exact, and the multiply
+// by the scale pair rounds once. The scales are not halved to reuse the
+// int8 trick: halving a subnormal bf16 scale drops its low bit. What moved
+// its time on the H100 (PERF.md, section 6): the pushed reduction (in place of
+// one rank reading every rank's sums between two cluster barriers), a ring
+// of 4 stages (8 was slower) and the second doubling of the split. Not the
+// decode: with none at all the kernel was 13% faster, and a one-multiply
+// path for scales below 4 and integer work moved to the multiply pipe were
+// both slower.
 
 #include <atomic>
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace {
 using namespace qtt;
-namespace cg = cooperative_groups;
 
-// --- packed E2M1 (K/2, N) ---------------------------------------------------
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kCols = 16 * kWarps;  // output columns per block: one m16 tile a warp
+constexpr int kMaxSplit = 8;        // most blocks of a cluster (the portable limit)
+constexpr int kRingBytes = 113 * 1024;  // a block's shared memory: 2 blocks fit an SM
 
-constexpr int kPCols = 32;  // one column per lane
-constexpr int kPWarps = 16;
-constexpr int kPThreads = 32 * kPWarps;
-constexpr int kPChunk = kPWarps * kMaxSeg;  // K rows (of each plane) per pass
-static_assert(2 * kPChunk * kMTile >= kPWarps * kMTile * kPCols, "shared buffer");
+static_assert(kCols == kLine, "a staged row is one 128-byte line (common.cuh: w_off)");
 
-__global__ void __launch_bounds__(kPThreads)
-nvfp4_packed_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ packed,
-                    const __nv_bfloat16* __restrict__ scale, __nv_bfloat16* __restrict__ out,
-                    int M, int K, int N, int g, int seg) {
-  __shared__ __align__(16) float smem[2 * kPChunk * kMTile];
-  float* xs_lo = smem;
-  float* xs_hi = smem + kPChunk * kMTile;
-  const int half = K / 2;
-  const int chunk = kPWarps * seg;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int m0 = blockIdx.y * kMTile;
-  const int col0 = blockIdx.x * kPCols;
-  const int col = col0 + lane;
-  const int s0 = warp * seg;
+// --- int8-doubled (K, N) ------------------------------------------------------
 
-  float acc[kMTile];
-#pragma unroll
-  for (int m = 0; m < kMTile; ++m) acc[m] = 0.f;
-
-  for (int c0 = 0; c0 < half; c0 += chunk) {
-    const int rows = min(chunk, half - c0);  // a multiple of seg
-    const bool mine = s0 < rows;
-    const uint8_t* wp = packed + (size_t)(c0 + s0) * N + col;
-    uint32_t wb[kMaxSeg];
-#pragma unroll
-    for (int i = 0; i < kMaxSeg; ++i) wb[i] = (mine && i < seg) ? wp[(size_t)i * N] : 0u;
-    float sl = 0.f, sh = 0.f;
-    if (mine) {
-      // a segment lies in one group of each plane (seg divides g and K/2)
-      sl = __bfloat162float(scale[(size_t)((c0 + s0) / g) * N + col]);
-      sh = __bfloat162float(scale[(size_t)((half + c0 + s0) / g) * N + col]);
-    }
-    __syncthreads();  // the previous pass is done with the staged x
-    stage_x(xs_lo, x, M, K, m0, c0, rows);
-    stage_x(xs_hi, x, M, K, m0, half + c0, rows);
-    __syncthreads();
-    if (!mine) continue;
-#pragma unroll
-    for (int i = 0; i < kMaxSeg; ++i) {
-      if (i >= seg) break;
-      const float wl = round_bf16(fp4_value(wb[i] & 0xFu) * sl);
-      const float wh = round_bf16(fp4_value(wb[i] >> 4) * sh);
-      float xl[kMTile], xh[kMTile];
-      load_x8(xs_lo + (s0 + i) * kMTile, xl);
-      load_x8(xs_hi + (s0 + i) * kMTile, xh);
-#pragma unroll
-      for (int m = 0; m < kMTile; ++m) acc[m] = fmaf(xh[m], wh, fmaf(xl[m], wl, acc[m]));
-    }
-  }
-  __syncthreads();  // every warp is done with the staged x: reuse it
-  float* red = smem;  // [warp][m][kPCols]
-#pragma unroll
-  for (int m = 0; m < kMTile; ++m) red[(warp * kMTile + m) * kPCols + lane] = acc[m];
-  __syncthreads();
-  reduce_store<kPWarps>(red, kPCols, out, M, N, m0, col0);
-}
-
-// --- int8-doubled (K, N), tensor cores -----------------------------------------
-
-constexpr int kIWarps = 8;
-constexpr int kIThreads = 32 * kIWarps;
-constexpr int kICols = 16 * kIWarps;      // output columns per block: one m16 tile a warp
-constexpr int kIRows = 128;               // K rows per stage
-constexpr int kIMaxSplit = 8;             // most blocks of a cluster (the portable limit)
-constexpr int kISlots = kIRows / 16;      // scale rows of a stage at g = 16
-constexpr int kIXPitch = kIRows + 8;      // bf16 per staged x row (16 bytes of padding)
+constexpr int kIRows = 128;           // K rows per stage
+constexpr int kISlots = kIRows / 16;  // scale rows of a stage at g = 16
+constexpr int kIXPitch = kIRows + 8;  // bf16 per staged x row (16 bytes of padding)
 
 // One stage of the ring: the int8 tile [kIRows][128] (16-byte pieces
 // swizzled, see w_off), the scale rows [kISlots][128] bf16, then x
-// [8 MG][kIXPitch] bf16.
+// [8 MG][kIXPitch] bf16. Beside the ring: the block's f32 outputs as the
+// cluster's ranks send them, and an mbarrier (push_store).
 template <int MG>
 struct IStage {
-  static constexpr int kW = kIRows * kICols;
-  static constexpr int kS = kISlots * kICols * 2;
+  static constexpr int kW = kIRows * kCols;
+  static constexpr int kS = kISlots * kCols * 2;
   static constexpr int kX = 8 * MG * kIXPitch * 2;
   static constexpr int kBytes = kW + kS + kX;
-  // the ring's depth: 2 blocks of 8 warps fit an SM at every MG
-  static constexpr int kStages = MG <= 2 ? 4 : 3;
-  static constexpr int kSmem = kStages * kBytes;
-  static_assert(kBytes % 16 == 0 && kSmem <= 113 * 1024, "ring");
-  static_assert(8 * MG * kICols * 4 <= kSmem, "reduction buffer");
+  static constexpr int kOut = 8 * MG * kCols;  // f32
+  // the deepest ring that leaves room for 2 blocks an SM
+  static constexpr int kStages = MG <= 2 ? 4 : MG == 4 ? 3 : 2;
+  static constexpr int kRing = kStages * kBytes;
+  static constexpr int kSmem = kRing + kOut * 4 + 16;
+  static_assert(kBytes % 16 == 0 && kSmem <= kRingBytes, "ring");
 };
 
-static_assert(kICols == kLine, "a staged K row is one 128-byte line (common.cuh: w_off)");
+// --- packed E2M1 (K/2, N) -----------------------------------------------------
+
+constexpr int kPRows = 64;            // packed rows per stage: 128 K rows, 64 a plane
+constexpr int kPSlots = kPRows / 16;  // scale rows of a stage, each plane, at g = 16
+constexpr int kPXPitch = kPRows + 8;  // bf16 per staged x row (16 bytes of padding)
+
+// One stage of the ring: the packed tile [kPRows][128] (swizzled), the
+// scale rows of the lo plane [kPSlots][128] bf16 and of the hi plane, then
+// x's lo plane [8 MG][kPXPitch] bf16 and its hi plane. Beside the ring: the
+// block's f32 outputs as the cluster's ranks send them (each rank receives
+// every rank's partials of its 1 / ranks of them) and an mbarrier. The ring
+// holds 4 stages (2 at MG 8, where no more fit): 8 stages at m 8 ran slower
+// on the H100 than 3 or 4, and 2 slower still.
+template <int MG>
+struct PStage {
+  static constexpr int kW = kPRows * kCols;
+  static constexpr int kS = 2 * kPSlots * kCols * 2;
+  static constexpr int kXPlane = 8 * MG * kPXPitch;  // bf16
+  static constexpr int kX = 2 * kXPlane * 2;
+  static constexpr int kBytes = kW + kS + kX;
+  static constexpr int kOut = 8 * MG * kCols;  // f32
+  static constexpr int kFit = (kRingBytes - kOut * 4 - 16) / kBytes;
+  static constexpr int kStages = kFit < 4 ? kFit : 4;
+  static constexpr int kRing = kStages * kBytes;
+  static constexpr int kSmem = kRing + kOut * 4 + 16;
+  static_assert(kBytes % 16 == 0 && kStages >= 2 && kSmem <= kRingBytes, "ring");
+};
 
 __device__ __forceinline__ __nv_bfloat162 as_bf162(uint32_t u) {
   return *reinterpret_cast<const __nv_bfloat162*>(&u);
 }
-
 
 // The bytes of an ldmatrix.trans register, (k, c0), (k, c1), (k+1, c0),
 // (k+1, c1), int8-doubled values |v| <= 12, as the bf16 pairs
@@ -189,13 +170,114 @@ __device__ __forceinline__ void dequant_pairs(uint32_t r, __nv_bfloat162 s0, __n
   hi = as_u32(__hmul2(v1, s1));
 }
 
+// The E2M1 codes in the top nibble of each 16-bit half of q (bits 12-15 and
+// 28-31) as a bf16 pair times the scale pair s: the sign goes to bit 15, the
+// magnitude code (e, m) to bits 6-8, which is the bf16 of value * 2^-126
+// (code 1, 0.5, the subnormal 2^-127); times 2^126 is exact, times s rounds
+// the exact product once.
+__device__ __forceinline__ uint32_t e2m1_pair(uint32_t q, __nv_bfloat162 s) {
+  const uint32_t bits = (q & 0x80008000u) | ((q >> 6) & 0x01C001C0u);
+  const __nv_bfloat162 two126 = as_bf162(0x7E807E80u);  // 2^126 in both halves
+  return as_u32(__hmul2(__hmul2(as_bf162(bits), two126), s));
+}
+
+// One packed ldmatrix.trans register, bytes (p, c0), (p, c1), (p+1, c0),
+// (p+1, c1), as the A pairs of both planes: lo-plane K rows p, p+1 from
+// the low nibbles, hi-plane rows from the high nibbles, each times its
+// column's scale pair (sl0, sl1: lo plane, columns c0, c1; sh0, sh1: hi).
+__device__ __forceinline__ void dequant_packed(uint32_t r, __nv_bfloat162 sl0,
+                                               __nv_bfloat162 sl1, __nv_bfloat162 sh0,
+                                               __nv_bfloat162 sh1, uint32_t& lo0, uint32_t& lo1,
+                                               uint32_t& hi0, uint32_t& hi1) {
+  hi1 = e2m1_pair(r, sh1);        // high nibbles of bytes 1, 3
+  lo1 = e2m1_pair(r << 4, sl1);   // low nibbles of bytes 1, 3
+  hi0 = e2m1_pair(r << 8, sh0);   // high nibbles of bytes 0, 2
+  lo0 = e2m1_pair(r << 12, sl0);  // low nibbles of bytes 0, 2
+}
+
+// The scale pairs of the k16 step whose rows start at K row k (lo plane;
+// the hi plane's at K/2 + k) for a lane's columns: rows k + 2t, +1 (a0, a1)
+// and k + 8 + 2t, +1 (a2, a3), each as (column c0 pair, column c1 pair),
+// read from device memory (any g). Rows at or past `end` read 0.
+__device__ __forceinline__ void row_scales(const __nv_bfloat16* __restrict__ scale, int k, int end,
+                                           int g, int N, int c, __nv_bfloat162& s0a,
+                                           __nv_bfloat162& s1a, __nv_bfloat162& s0b,
+                                           __nv_bfloat162& s1b) {
+  const __nv_bfloat162 zero = __floats2bfloat162_rn(0.f, 0.f);
+  __nv_bfloat162 row[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int kj = k + (j & 1) + (j >> 1) * 8;
+    row[j] = kj < end ? __ldg(reinterpret_cast<const __nv_bfloat162*>(
+                            scale + (size_t)(kj / g) * N + c))
+                      : zero;
+  }
+  s0a = __lows2bfloat162(row[0], row[1]);
+  s1a = __highs2bfloat162(row[0], row[1]);
+  s0b = __lows2bfloat162(row[2], row[3]);
+  s1b = __highs2bfloat162(row[2], row[3]);
+}
+
+// The cluster's shares of K added in a fixed order, pushed: output e of the
+// block (row e / 128, column e % 128) belongs to rank e / share. Every rank
+// stores its partial sum of e into slot `rank` of the owner's buffer `red`,
+// completing on the owner's `reduced` barrier (armed by push_init); each
+// rank then adds its outputs' partials rank by rank and writes them. No
+// rank reads another's shared memory, so each exits once its own outputs
+// are written.
+__device__ __forceinline__ void push_init(uint64_t* reduced, int bytes) {
+  if (threadIdx.x == 0) {
+    mbar_init(reduced, 1);
+    mbar_expect(reduced, bytes);  // every rank's partials of this rank's outputs
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // the other ranks may send to `reduced` once every rank has passed here
+  // (push_store waits before the first send)
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+template <int MG>
+__device__ __forceinline__ void push_store(const float (&acc)[MG][4], float* red,
+                                           uint64_t* reduced, __nv_bfloat16* __restrict__ out,
+                                           int M, int N, int m0, int n0, int col, int t) {
+  constexpr int kOut = 8 * MG * kCols;
+  const int ranks = gridDim.z, rank = blockIdx.z;
+  const int share = kOut / ranks;
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  // c0, c2 are rows 2t of columns col, col + 1; c1, c3 rows 2t + 1
+#pragma unroll
+  for (int mg = 0; mg < MG; ++mg)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int e = (mg * 8 + 2 * t + h) * kCols + col;
+      const int owner = e / share;
+      st_async_f32x2(map_rank(red + rank * share + e - owner * share, owner), acc[mg][h],
+                     acc[mg][2 + h], map_rank(reduced, owner));
+    }
+  mbar_wait(reduced, 0);
+  for (int j = 2 * threadIdx.x; j < share; j += 2 * kThreads) {
+    const int e = rank * share + j;
+    const int m = e / kCols, c = e % kCols;
+    if (m0 + m >= M) break;  // j grows with m
+    float2 sum = make_float2(0.f, 0.f);
+    for (int r = 0; r < ranks; ++r) {
+      const float2 v = *reinterpret_cast<const float2*>(red + r * share + j);
+      sum.x += v.x;
+      sum.y += v.y;
+    }
+    *reinterpret_cast<__nv_bfloat162*>(out + (size_t)(m0 + m) * N + n0 + c) =
+        __floats2bfloat162_rn(sum.x, sum.y);
+  }
+}
+
 // One block: 128 columns (warp w: columns 16w ..) by 8 MG rows of x over
 // its cluster rank's share of K (gridDim.z blocks a cluster split K).
 // kG16: NVFP4's g = 16, the scales staged with the weights; otherwise (any
 // g) the scale of each K row is read from device memory.
 template <int MG, bool kG16>
-__global__ void __launch_bounds__(kIThreads)
-nvfp4_i8_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w8,
+__global__ void __launch_bounds__(kThreads)
+nvfp4_i8_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w8,
                 const __nv_bfloat16* __restrict__ scale, __nv_bfloat16* __restrict__ out,
                 int M, int K, int N, int g) {
   using St = IStage<MG>;
@@ -203,12 +285,15 @@ nvfp4_i8_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ 
   extern __shared__ __align__(16) uint8_t smem[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gid = lane / 4, t = lane % 4;
-  const int n0 = blockIdx.x * kICols;
+  const int n0 = blockIdx.x * kCols;
   const int m0 = blockIdx.y * 8 * MG;
   // this block's stages: its share (blockIdx.z of gridDim.z) of K's
   const int all = (K + kIRows - 1) / kIRows;
   const int s0 = all * blockIdx.z / gridDim.z;
   const int nk = all * (blockIdx.z + 1) / gridDim.z - s0;
+  float* red = reinterpret_cast<float*>(smem + St::kRing);
+  uint64_t* reduced = reinterpret_cast<uint64_t*>(red + St::kOut);
+  push_init(reduced, St::kOut * 4);
 
   // Stage s0 + s (K rows from (s0 + s) * kIRows) into ring slot s % S. Rows
   // of W, x and the scales past K, and rows of x past M, are zero-filled, so
@@ -216,14 +301,14 @@ nvfp4_i8_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ 
   auto load = [&](int s) {
     uint8_t* base = smem + (s % S) * St::kBytes;
     const int k0 = (s0 + s) * kIRows;
-    for (int i = threadIdx.x; i < kIRows * kIWarps; i += kIThreads) {
-      const int r = i / kIWarps, c = i % kIWarps;  // 8 threads read one 128-byte row
+    for (int i = threadIdx.x; i < kIRows * kWarps; i += kThreads) {
+      const int r = i / kWarps, c = i % kWarps;  // 8 threads read one 128-byte row
       const bool ok = k0 + r < K;
       cp_async16(base + w_off(r, c), w8 + (size_t)(ok ? k0 + r : 0) * N + n0 + c * 16, ok);
     }
     if (kG16) {
       const int first = k0 / 16, last = (min(k0 + kIRows, K) - 1) / 16;
-      for (int i = threadIdx.x; i < kISlots * 16; i += kIThreads) {
+      for (int i = threadIdx.x; i < kISlots * 16; i += kThreads) {
         const int grp = first + i / 16;
         const bool ok = grp <= last;
         cp_async16(base + St::kW + i * 16, scale + (size_t)(ok ? grp : 0) * N + n0 + (i % 16) * 8,
@@ -232,7 +317,7 @@ nvfp4_i8_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ 
     }
     uint8_t* xs = base + St::kW + St::kS;
     constexpr int kChunks = kIRows / 8;  // 16-byte pieces of a staged x row
-    for (int i = threadIdx.x; i < 8 * MG * kChunks; i += kIThreads) {
+    for (int i = threadIdx.x; i < 8 * MG * kChunks; i += kThreads) {
       const int r = i / kChunks, c = i % kChunks;
       const bool ok = m0 + r < M && k0 + c * 8 < K;
       cp_async16(xs + (r * kIXPitch + c * 8) * 2,
@@ -271,27 +356,12 @@ nvfp4_i8_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ 
         const int kk = kr + st * 16;  // the k16 step's first row in the stage
         __nv_bfloat162 s0a, s1a, s0b, s1b;  // scale pairs of a0, a1 and of a2, a3
         if (kG16) {
-          const int slot = kk / 16;  // k0 is a multiple of 16
           const __nv_bfloat162 sp =
-              *reinterpret_cast<const __nv_bfloat162*>(ss + slot * kICols + col);
+              *reinterpret_cast<const __nv_bfloat162*>(ss + (kk / 16) * kCols + col);
           s0a = s0b = __low2bfloat162(sp);
           s1a = s1b = __high2bfloat162(sp);
         } else {
-          // the scale rows of K rows k, k+1, k+8, k+9
-          const int k = k0 + kk + 2 * t;
-          const __nv_bfloat162 zero = __floats2bfloat162_rn(0.f, 0.f);
-          __nv_bfloat162 row[4];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int kj = k + (j & 1) + (j >> 1) * 8;
-            row[j] = kj < K ? __ldg(reinterpret_cast<const __nv_bfloat162*>(
-                                  scale + (size_t)(kj / g) * N + n0 + col))
-                            : zero;
-          }
-          s0a = __lows2bfloat162(row[0], row[1]);
-          s1a = __highs2bfloat162(row[0], row[1]);
-          s0b = __lows2bfloat162(row[2], row[3]);
-          s1b = __highs2bfloat162(row[2], row[3]);
+          row_scales(scale, k0 + kk + 2 * t, K, g, N, n0 + col, s0a, s1a, s0b, s1b);
         }
         uint32_t a[4];
         dequant_pairs(wr[2 * st], s0a, s1a, a[0], a[1]);
@@ -305,44 +375,135 @@ nvfp4_i8_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ 
       }
     }
   }
-  cp_async_wait<0>();
-  __syncthreads();  // the ring is idle: reuse it for the block's sums
-
-  // c0, c2 are rows 2t of columns col, col + 1; c1, c3 rows 2t + 1
-  float* fin = reinterpret_cast<float*>(smem);  // [8 MG rows][kICols]
-#pragma unroll
-  for (int mg = 0; mg < MG; ++mg) {
-    float* rr = fin + (mg * 8 + 2 * t) * kICols + col;
-    *reinterpret_cast<float2*>(rr) = make_float2(acc[mg][0], acc[mg][2]);
-    *reinterpret_cast<float2*>(rr + kICols) = make_float2(acc[mg][1], acc[mg][3]);
-  }
-  // the cluster's shares of K meet in its first block's shared memory and
-  // are added in a fixed order (rank 0 first)
-  cg::cluster_group cluster = cg::this_cluster();
-  cluster.sync();
-  if (cluster.block_rank() == 0) {
-    const int ranks = (int)cluster.num_blocks();
-    for (int i = threadIdx.x; i < 8 * MG * kICols / 2; i += kIThreads) {
-      const int m = i / (kICols / 2), c = 2 * (i % (kICols / 2));
-      if (m0 + m >= M) break;  // i grows with m
-      float2 sum = make_float2(0.f, 0.f);
-      for (int r = 0; r < ranks; ++r) {
-        const float2 v =
-            *reinterpret_cast<const float2*>(cluster.map_shared_rank(fin, r) + m * kICols + c);
-        sum.x += v.x;
-        sum.y += v.y;
-      }
-      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)(m0 + m) * N + n0 + c) =
-          __floats2bfloat162_rn(sum.x, sum.y);
-    }
-  }
-  cluster.sync();  // the other blocks' sums stay readable until they are read
+  push_store<MG>(acc, red, reduced, out, M, N, m0, n0, col, t);
 }
 
+// The packed kernel: the same block over stages of kPRows packed rows,
+// each of which holds K rows k0 + p (lo plane) and K/2 + k0 + p (hi plane).
 template <int MG, bool kG16>
-int launch_i8(const void* x, const void* w8, const void* scale, void* out, int M, int K, int N,
-              int g, cudaStream_t stream) {
-  constexpr int smem = IStage<MG>::kSmem;
+__global__ void __launch_bounds__(kThreads)
+nvfp4_packed_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ packed,
+                    const __nv_bfloat16* __restrict__ scale, __nv_bfloat16* __restrict__ out,
+                    int M, int K, int N, int g) {
+  using St = PStage<MG>;
+  constexpr int S = St::kStages;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gid = lane / 4, t = lane % 4;
+  const int n0 = blockIdx.x * kCols;
+  const int m0 = blockIdx.y * 8 * MG;
+  const int half = K / 2;
+  const int all = (half + kPRows - 1) / kPRows;
+  const int s0 = all * blockIdx.z / gridDim.z;
+  const int nk = all * (blockIdx.z + 1) / gridDim.z - s0;
+  float* red = reinterpret_cast<float*>(smem + St::kRing);
+  uint64_t* reduced = reinterpret_cast<uint64_t*>(red + St::kOut);
+  push_init(reduced, St::kOut * 4);
+
+  // Stage s0 + s (packed rows from (s0 + s) * kPRows) into ring slot s % S.
+  // Packed rows past K/2 and their x columns and scale rows, and rows of x
+  // past M, are zero-filled, so they add 0.
+  auto load = [&](int s) {
+    uint8_t* base = smem + (s % S) * St::kBytes;
+    const int k0 = (s0 + s) * kPRows;
+    for (int i = threadIdx.x; i < kPRows * kWarps; i += kThreads) {
+      const int r = i / kWarps, c = i % kWarps;  // 8 threads read one 128-byte row
+      const bool ok = k0 + r < half;
+      cp_async16(base + w_off(r, c), packed + (size_t)(ok ? k0 + r : 0) * N + n0 + c * 16, ok);
+    }
+    if (kG16) {
+      // lo-plane scale rows k0/16 .., then the hi plane's, K/32 further on
+      for (int i = threadIdx.x; i < 2 * kPSlots * 16; i += kThreads) {
+        const int plane = i / (kPSlots * 16), row = (i / 16) % kPSlots;
+        const bool ok = k0 + row * 16 < half;
+        const int grp = plane * (half / 16) + k0 / 16 + row;
+        cp_async16(base + St::kW + i * 16, scale + (size_t)(ok ? grp : 0) * N + n0 + (i % 16) * 8,
+                   ok);
+      }
+    }
+    uint8_t* xs = base + St::kW + St::kS;
+    constexpr int kChunks = kPRows / 8;  // 16-byte pieces of a staged x row
+    for (int i = threadIdx.x; i < 2 * 8 * MG * kChunks; i += kThreads) {
+      const int plane = i / (8 * MG * kChunks), r = (i / kChunks) % (8 * MG), c = i % kChunks;
+      const bool ok = m0 + r < M && k0 + c * 8 < half;
+      cp_async16(xs + (plane * St::kXPlane + r * kPXPitch + c * 8) * 2,
+                 x + (ok ? (size_t)(m0 + r) * K + plane * half + k0 + c * 8 : 0), ok);
+    }
+  };
+
+  float acc[MG][4];
+#pragma unroll
+  for (int mg = 0; mg < MG; ++mg)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[mg][j] = 0.f;
+
+  const int col = warp * 16 + 2 * gid;  // A rows gid, gid + 8: columns col, col + 1
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < nk) load(s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < nk; ++s) {
+    cp_async_wait<S - 2>();  // this thread's copies of stage s have landed
+    __syncthreads();         // everyone's have, and stage s - 1's slot is free
+    if (s + S - 1 < nk) load(s + S - 1);
+    cp_async_commit();
+
+    const uint8_t* base = smem + (s % S) * St::kBytes;
+    const __nv_bfloat16* sl = reinterpret_cast<const __nv_bfloat16*>(base + St::kW);
+    const __nv_bfloat16* sh = sl + kPSlots * kCols;
+    const __nv_bfloat16* xl = reinterpret_cast<const __nv_bfloat16*>(base + St::kW + St::kS);
+    const __nv_bfloat16* xh = xl + St::kXPlane;
+    const int k0 = (s0 + s) * kPRows;
+#pragma unroll
+    for (int kr = 0; kr < kPRows; kr += 32) {
+      uint32_t wr[4];
+      ldmatrix_x4_trans(wr, base + w_off(kr + lane, warp));
+#pragma unroll
+      for (int st = 0; st < 2; ++st) {
+        const int kk = kr + st * 16;  // the k16 step's first packed row in the stage
+        // scale pairs of a0, a1 (suffix a) and a2, a3 (b), lo and hi plane
+        __nv_bfloat162 l0a, l1a, l0b, l1b, h0a, h1a, h0b, h1b;
+        if (kG16) {
+          const __nv_bfloat162 pl =
+              *reinterpret_cast<const __nv_bfloat162*>(sl + (kk / 16) * kCols + col);
+          const __nv_bfloat162 ph =
+              *reinterpret_cast<const __nv_bfloat162*>(sh + (kk / 16) * kCols + col);
+          l0a = l0b = __low2bfloat162(pl);
+          l1a = l1b = __high2bfloat162(pl);
+          h0a = h0b = __low2bfloat162(ph);
+          h1a = h1b = __high2bfloat162(ph);
+        } else {
+          const int k = k0 + kk + 2 * t;
+          row_scales(scale, k, half, g, N, n0 + col, l0a, l1a, l0b, l1b);
+          // the hi plane's rows K/2 + k ..: rows at or past K read 0
+          row_scales(scale, half + k, K, g, N, n0 + col, h0a, h1a, h0b, h1b);
+        }
+        uint32_t alo[4], ahi[4];
+        dequant_packed(wr[2 * st], l0a, l1a, h0a, h1a, alo[0], alo[1], ahi[0], ahi[1]);
+        dequant_packed(wr[2 * st + 1], l0b, l1b, h0b, h1b, alo[2], alo[3], ahi[2], ahi[3]);
+#pragma unroll
+        for (int mg = 0; mg < MG; ++mg) {
+          const int xo = (mg * 8 + gid) * kPXPitch + kk + 2 * t;
+          mma_bf16(acc[mg], alo, *reinterpret_cast<const uint32_t*>(xl + xo),
+                   *reinterpret_cast<const uint32_t*>(xl + xo + 8));
+          mma_bf16(acc[mg], ahi, *reinterpret_cast<const uint32_t*>(xh + xo),
+                   *reinterpret_cast<const uint32_t*>(xh + xo + 8));
+        }
+      }
+    }
+  }
+  push_store<MG>(acc, red, reduced, out, M, N, m0, n0, col, t);
+}
+
+// Launch one of the kernels over column tiles, 8 MG-row tiles of x and a
+// cluster that splits K's stages.
+template <int MG, bool kPacked, bool kG16>
+int launch(const void* x, const void* w, const void* scale, void* out, int M, int K, int N, int g,
+           cudaStream_t stream) {
+  using St = std::conditional_t<kPacked, PStage<MG>, IStage<MG>>;
+  const auto kernel = kPacked ? nvfp4_packed_kernel<MG, kG16> : nvfp4_i8_kernel<MG, kG16>;
+  constexpr int smem = St::kSmem;
   // the shared-memory limit is raised, and the SMs counted, once per device
   static std::atomic<uint64_t> raised{0};
   static std::atomic<int> sms[64];
@@ -351,8 +512,7 @@ int launch_i8(const void* x, const void* w8, const void* scale, void* out, int M
   if (e != cudaSuccess) return (int)e;
   const uint64_t bit = 1ull << (dev & 63);
   if (!(raised.load() & bit)) {
-    e = cudaFuncSetAttribute(nvfp4_i8_kernel<MG, kG16>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     int count = 0;
     e = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
@@ -361,16 +521,21 @@ int launch_i8(const void* x, const void* w8, const void* scale, void* out, int M
     raised.fetch_or(bit);
   }
   // split K over a cluster of the fewest blocks (a power of two, at most
-  // 8) that puts a block on every SM, each block keeping 2 stages or more:
-  // all blocks then run in one wave (2 fit an SM)
-  const int tiles = (N / kICols) * ((M + 8 * MG - 1) / (8 * MG));
-  const int stages = (K + kIRows - 1) / kIRows;
+  // 8) that puts a block on every SM, each block keeping 2 stages or more;
+  // the packed kernel's split is then doubled while that puts fewer than 2
+  // blocks on every SM and each block keeps 4 stages or more (gate|up at
+  // m 8: 304 blocks, 0.025 -> 0.020 ms on the H100; the int8 kernel lost).
+  // All blocks run in one wave (2 fit an SM). A stage holds 128 K rows in
+  // both layouts.
+  const int tiles = (N / kCols) * ((M + 8 * MG - 1) / (8 * MG));
+  const int stages = (K + 127) / 128, count = sms[dev & 63].load();
   int split = 1;
-  while (split < kIMaxSplit && tiles * split < sms[dev & 63].load() && stages >= 4 * split)
+  while (split < kMaxSplit && tiles * split < count && stages >= 4 * split) split *= 2;
+  while (kPacked && split < kMaxSplit && tiles * split < 2 * count && stages >= 8 * split)
     split *= 2;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(N / kICols, (M + 8 * MG - 1) / (8 * MG), split);
-  cfg.blockDim = dim3(kIThreads);
+  cfg.gridDim = dim3(N / kCols, (M + 8 * MG - 1) / (8 * MG), split);
+  cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -380,42 +545,45 @@ int launch_i8(const void* x, const void* w8, const void* scale, void* out, int M
   attr[0].val.clusterDim.z = split;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, nvfp4_i8_kernel<MG, kG16>,
-                                 static_cast<const __nv_bfloat16*>(x),
-                                 static_cast<const int8_t*>(w8),
+  return (int)cudaLaunchKernelEx(&cfg, kernel, static_cast<const __nv_bfloat16*>(x),
+                                 static_cast<const uint8_t*>(w),
                                  static_cast<const __nv_bfloat16*>(scale),
                                  static_cast<__nv_bfloat16*>(out), M, K, N, g);
 }
 
-template <bool kG16>
-int launch_i8_rows(const void* x, const void* w8, const void* scale, void* out, int M, int K,
-                   int N, int g, cudaStream_t stream) {
+template <bool kPacked, bool kG16>
+int launch_rows(const void* x, const void* w, const void* scale, void* out, int M, int K, int N,
+                int g, cudaStream_t stream) {
   // rows of x per block: the fewest 8-row groups that hold M, up to 64
-  if (M <= 8) return launch_i8<1, kG16>(x, w8, scale, out, M, K, N, g, stream);
-  if (M <= 16) return launch_i8<2, kG16>(x, w8, scale, out, M, K, N, g, stream);
-  if (M <= 32) return launch_i8<4, kG16>(x, w8, scale, out, M, K, N, g, stream);
-  return launch_i8<8, kG16>(x, w8, scale, out, M, K, N, g, stream);
+  if (M <= 8) return launch<1, kPacked, kG16>(x, w, scale, out, M, K, N, g, stream);
+  if (M <= 16) return launch<2, kPacked, kG16>(x, w, scale, out, M, K, N, g, stream);
+  if (M <= 32) return launch<4, kPacked, kG16>(x, w, scale, out, M, K, N, g, stream);
+  return launch<8, kPacked, kG16>(x, w, scale, out, M, K, N, g, stream);
+}
+
+template <bool kPacked>
+int launch_g(const void* x, const void* w, const void* scale, void* out, int M, int K, int N,
+             int g, void* stream) {
+  if (!aligned16(x) || !aligned16(w) || !aligned16(scale)) return (int)cudaErrorMisalignedAddress;
+  const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  return g == 16 ? launch_rows<kPacked, true>(x, w, scale, out, M, K, N, g, st)
+                 : launch_rows<kPacked, false>(x, w, scale, out, M, K, N, g, st);
 }
 
 }  // namespace
 
 extern "C" int qtt_nvfp4_matmul(const void* x, const void* packed, const void* scale, void* out,
                                 int M, int K, int N, int g, void* stream) {
-  if (M <= 0 || g <= 0 || K % (2 * g) || N % kPCols) return (int)cudaErrorInvalidValue;
-  const dim3 grid(N / kPCols, (M + kMTile - 1) / kMTile);
-  nvfp4_packed_kernel<<<grid, kPThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(packed),
-      static_cast<const __nv_bfloat16*>(scale), static_cast<__nv_bfloat16*>(out),
-      M, K, N, g, segment_rows(g));
-  return (int)cudaGetLastError();
+  // 16-byte copies: 8 | K/2 for the rows of both planes of x, 128 | N and
+  // 16-byte aligned bases
+  if (M <= 0 || g <= 0 || K % (2 * g) || (K / 2) % 8 || N % kCols)
+    return (int)cudaErrorInvalidValue;
+  return launch_g<true>(x, packed, scale, out, M, K, N, g, stream);
 }
 
 extern "C" int qtt_nvfp4_i8_matmul(const void* x, const void* w8, const void* scale, void* out,
                                    int M, int K, int N, int g, void* stream) {
   // 16-byte copies: 8 | K for the x rows, 128 | N and 16-byte aligned bases
-  if (M <= 0 || g <= 0 || K % g || K % 8 || N % kICols) return (int)cudaErrorInvalidValue;
-  if (!aligned16(x) || !aligned16(w8) || !aligned16(scale)) return (int)cudaErrorMisalignedAddress;
-  const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  return g == 16 ? launch_i8_rows<true>(x, w8, scale, out, M, K, N, g, st)
-                 : launch_i8_rows<false>(x, w8, scale, out, M, K, N, g, st);
+  if (M <= 0 || g <= 0 || K % g || K % 8 || N % kCols) return (int)cudaErrorInvalidValue;
+  return launch_g<false>(x, w8, scale, out, M, K, N, g, stream);
 }

@@ -90,10 +90,11 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_
 def _kernel_view(t: torch.Tensor) -> torch.Tensor:
     """``t`` as the kernel reads it: a contiguous last dim, 16-byte aligned
     rows (strides of whole 8-element chunks, none 0: the kernel's TMA copies
-    take no expanded view); a view is kept where it is."""
+    take no expanded view) at a 16-byte aligned base; a view is kept where
+    it is, anything else copied."""
     aligned = (t.stride(-1) == 1 and all(s % 8 == 0 and s > 0 for s in t.stride()[:-1])
                and t.data_ptr() % 16 == 0)
-    return t if aligned else t.contiguous()
+    return t if aligned else t.clone(memory_format=torch.contiguous_format)
 
 
 @_count

@@ -41,7 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from ._launch import KernelUnsupported, _count, _stream
+from ._launch import KernelUnsupported, _count, _stream, aligned16
 from .flash import flash_attention
 from .linear import QuantLinear, _unpack_fp4, _unpack_nibbles
 
@@ -57,7 +57,7 @@ FP8_BLOCK = 128
 
 def _flatten_x(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, Tuple[int, ...]]:
     lead = tuple(x.shape[:-1])
-    return x.reshape(-1, k).to(torch.bfloat16).contiguous(), lead
+    return aligned16(x.reshape(-1, k).to(torch.bfloat16).contiguous()), lead
 
 
 def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
@@ -466,9 +466,15 @@ def mla_decode_attention(q_abs: torch.Tensor, q_pe: torch.Tensor, new_c: torch.T
         raise ValueError(f"mla_decode_attention: no kernel for device {q_abs.device}")
     B, H, r = q_abs.shape
     dp, S = q_pe.shape[2], cache_c.shape[2]
-    q_abs, q_pe = q_abs.contiguous(), q_pe.contiguous()
-    new_c = new_c.to(cache_c.dtype).contiguous()
-    new_p = new_p.to(cache_p.dtype).contiguous()
+    # the kernel reads rows 16 bytes at a time: the inputs are copied to an
+    # aligned base where needed, the caches (written in place) cannot be
+    for name, cache in (("cache_c", cache_c), ("cache_p", cache_p)):
+        if cache.data_ptr() % 16:
+            raise ValueError(f"mla_decode_attention: {name} must start 16-byte aligned "
+                             f"(its base is {cache.data_ptr() % 16} bytes past)")
+    q_abs, q_pe = aligned16(q_abs.contiguous()), aligned16(q_pe.contiguous())
+    new_c = aligned16(new_c.to(cache_c.dtype).contiguous())
+    new_p = aligned16(new_p.to(cache_p.dtype).contiguous())
     lengths = lengths.to(torch.int32).contiguous()
     _check_cuda("mla_decode_attention", q_abs, q_pe, new_c, new_p, cache_c, cache_p, lengths)
     lib = _build.load()

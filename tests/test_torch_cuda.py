@@ -29,7 +29,7 @@ import torch
 
 from quantizers_tpu_torch.models.moe import ExpertLinears
 from quantizers_tpu_torch.ops import kernels as K
-from quantizers_tpu_torch.ops.linear import QuantLinear, nvfp4_packed_to_i8
+from quantizers_tpu_torch.ops.linear import QuantLinear, _unpack_fp4, nvfp4_packed_to_i8
 
 pytestmark = pytest.mark.cuda
 
@@ -174,6 +174,146 @@ def test_nvfp4_i8_kernel_reads_out_every_weight_exactly(gen):
         ref = K.nvfp4_matmul_plain(x, w8, scale, g)
         assert torch.equal(ref, wq[r0:r0 + m])
         assert torch.equal(got, ref), (r0, (got != ref).nonzero()[:4].tolist())
+
+
+#: (m, k, n, g) for the packed kernel: ragged row counts (1, 9, 17, 65 and
+#: two 64-row tiles at 130) at the smallest K the wrapper admits at g 16,
+#: groups 8 and 32, groups 12 and 20, at which K/2 ends in a partial
+#: 64-row stage (the kernel reads their scales per K row), the four
+#: Qwen3-4B decode calls and the row prefills' expert shapes. The small
+#: ones are held against the JAX Pallas kernel on the CPU
+#: (tests/test_torch_nvfp4.py).
+NVFP4_PACKED_SMALL = [(1, 256, 128, 16), (9, 256, 128, 16), (17, 512, 256, 16),
+                      (65, 256, 128, 16), (130, 512, 256, 16), (8, 512, 256, 8),
+                      (33, 1024, 384, 32), (9, 192, 128, 12), (65, 576, 256, 12),
+                      (5, 320, 128, 20)]
+NVFP4_PACKED_SHAPES = NVFP4_PACKED_SMALL + [
+    (8, 2560, 6144, 16), (8, 4096, 2560, 16), (8, 2560, 19456, 16), (8, 9728, 2560, 16),
+    (128, 2048, 768, 16), (128, 768, 2048, 16)]
+
+
+@pytest.mark.parametrize("m,k,n,g", NVFP4_PACKED_SHAPES)
+def test_nvfp4_packed_kernel_shapes_match_plain(gen, m, k, n, g):
+    lin = _nvfp4(gen, k, n, "packed", g)
+    x = torch.randn((m, k), device="cuda", generator=gen).bfloat16()
+    before = K.nvfp4_matmul.launches
+    got = K.nvfp4_matmul(x, lin)
+    assert K.nvfp4_matmul.launches == before + 1 and got.shape == (m, n)
+    _close_rows(got.float(), K.nvfp4_matmul_plain(x, lin.weight, lin.scale, g).float(), 1e-2)
+    assert torch.equal(K.nvfp4_matmul(x, lin), got)
+
+
+def test_nvfp4_packed_kernel_reads_out_every_weight_exactly(gen):
+    """One-hot rows of x read the dequantized weights out through the
+    packed kernel: all 16 E2M1 codes in both nibbles of a byte (each column
+    of a row sees every code in each nibble) times bf16 scales from
+    subnormals (exponent 0) up to the largest exponent at which 6 x scale
+    stays finite. Columns 0-127 hold scales below 4 only (up to 3.98), so
+    their warps take the kernel's one-multiply path; columns 128-255 span
+    the whole range and take the two-multiply one. The output must equal
+    the plain version's bit for bit (a single product each, so no sum
+    order enters), which pins the fragment mapping of both planes, the
+    decode, both paths and the scale planes."""
+    m, k, n, g = 8, 512, 256, 16
+    idx = torch.arange((k // 2) * n).reshape(k // 2, n)
+    lo, hi = idx % 16, (idx // 16 + 7 * idx) % 16
+    packed = (lo | (hi << 4)).to(torch.uint8).cuda()
+    rng = np.random.default_rng(11)
+    expo = np.concatenate([rng.integers(0, 129, (k // g, 128)),
+                           rng.integers(0, 252, (k // g, n - 128))], axis=1)
+    expo[0], expo[1] = 0, 1  # subnormal scales, in both planes
+    expo[k // (2 * g)], expo[k // (2 * g) + 1] = 1, 0
+    expo[2, 128:], expo[k // (2 * g) + 2, 128:] = 251, 251  # the top of the range
+    mant = rng.integers(0, 128, (k // g, n))
+    expo[3, :128], mant[3, :128] = 128, 127  # 3.98, the largest scale of the one-multiply path
+    bits = (expo << 7) | mant
+    scale = torch.from_numpy(bits.astype(np.int16)).view(torch.bfloat16).cuda()
+    lin = QuantLinear(kind="nvfp4", weight=packed, scale=scale,
+                      meta=(("k", k), ("n", n), ("group_size", g)))
+    wq = (_unpack_fp4(packed) * scale.float().repeat_interleave(g, dim=0)).bfloat16()
+    assert torch.isfinite(wq.float()).all() and (wq[:2 * g] != 0).any()
+    assert len(torch.unique(lo[0])) == 16 and len(torch.unique(hi[0])) == 16
+    rows = torch.arange(m, device="cuda")
+    for r0 in range(0, k, m):
+        x = torch.zeros((m, k), dtype=torch.bfloat16, device="cuda")
+        x[rows, r0 + rows] = 1
+        got = K.nvfp4_matmul(x, lin)
+        ref = K.nvfp4_matmul_plain(x, packed, scale, g)
+        assert torch.equal(ref, wq[r0:r0 + m])
+        assert torch.equal(got, ref), (r0, (got != ref).nonzero()[:4].tolist())
+
+
+def _offset_view(t):
+    """t's values in a contiguous view at element offset 3 of a flat buffer:
+    a base that is not 16-byte aligned."""
+    buf = torch.empty(t.numel() + 3, dtype=t.dtype, device=t.device)
+    view = buf[3:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    return view
+
+
+@pytest.mark.parametrize("kind", ["fp8", "nvfp4_i8", "nvfp4_packed"])
+def test_matmul_kernels_take_an_offset_view(gen, kind):
+    """x at an unaligned base is copied to an aligned one before the launch
+    (the kernels refuse unaligned bases): the same bits as the aligned call."""
+    m, k, n = 8, 2048, 3072
+    if kind == "fp8":
+        w = (torch.randn((k, n), device="cuda", generator=gen) * 100).clamp(-448, 448)
+        lin = QuantLinear(kind="fp8", weight=w.to(torch.float8_e4m3fn),
+                          scale=torch.rand((k // 128, n // 128), device="cuda",
+                                           generator=gen) * 1e-4,
+                          meta=(("k", k), ("n", n), ("strategy", "block"), ("block_k", 128),
+                                ("block_n", 128)))
+        wrapper = K.fp8_matmul
+    else:
+        layout = "int8" if kind == "nvfp4_i8" else "packed"
+        lin = _nvfp4(gen, k, n, layout)
+        wrapper = K.nvfp4_i8_matmul if layout == "int8" else K.nvfp4_matmul
+    x = torch.randn((m, k), device="cuda", generator=gen).bfloat16()
+    before = wrapper.launches
+    got = wrapper(_offset_view(x), lin)
+    assert wrapper.launches == before + 1
+    assert torch.equal(got, wrapper(x, lin))
+
+
+def test_flash_attention_takes_offset_views(gen):
+    from quantizers_tpu_torch.ops.flash import flash_attention
+
+    q, k, v = (torch.randn((1, 8, 256, 128), device="cuda", generator=gen).bfloat16()
+               for _ in range(3))
+    got = flash_attention(_offset_view(q), _offset_view(k), _offset_view(v), 0.0884)
+    assert torch.equal(got, flash_attention(q, k, v, 0.0884))
+
+
+def test_mla_decode_attention_refuses_an_unaligned_cache(gen):
+    """A cache is written in place, so it cannot be copied: an unaligned one
+    raises a ValueError naming it, before any launch. The other inputs are
+    copied to aligned bases (the same bits as the aligned call), and the
+    next call still matches the plain version."""
+    B, H, r, dp, S = 3, 4, 128, 128, 64
+
+    def rnd(*shape):
+        return torch.randn(shape, device="cuda", generator=gen).bfloat16()
+
+    ins = [rnd(B, H, r), rnd(B, H, dp), rnd(B, r), rnd(B, dp)]
+    cc, cp = rnd(B, 1, S, r), rnd(B, 1, S, dp)
+    lengths = torch.tensor([0, 17, S - 1], dtype=torch.int32, device="cuda")
+    sm = 1 / math.sqrt(192)
+    before = K.mla_decode_attention.launches
+    with pytest.raises(ValueError, match="cache_c"):
+        K.mla_decode_attention(*ins, _offset_view(cc), cp.clone(), lengths, sm)
+    with pytest.raises(ValueError, match="cache_p"):
+        K.mla_decode_attention(*ins, cc.clone(), _offset_view(cp), lengths, sm)
+    assert K.mla_decode_attention.launches == before
+    c1, p1, c2, p2 = cc.clone(), cp.clone(), cc.clone(), cp.clone()
+    got = K.mla_decode_attention(*[_offset_view(t) for t in ins], c1, p1, lengths, sm)
+    assert torch.equal(got, K.mla_decode_attention(*ins, cc.clone(), cp.clone(), lengths, sm))
+    ref = K.mla_decode_attention_plain(*ins, c2, p2, lengths, sm)
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs().amax(dim=2)
+    assert (err <= 2e-2 * ref.float().abs().amax(dim=2)).all(), err.amax()
+    assert torch.equal(c1, c2) and torch.equal(p1, p2)
 
 
 def test_fp8_kv_cache_saturates_on_the_card(gen):

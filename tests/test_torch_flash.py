@@ -160,3 +160,24 @@ def test_kernel_view_copies_expanded_views():
     assert got.is_contiguous() and torch.equal(got, k)
     q = torch.zeros((2, 64, 4, 128), dtype=torch.bfloat16).transpose(1, 2)
     assert _kernel_view(q) is q
+
+
+def test_kernel_view_copies_an_unaligned_base():
+    # TMA needs a 16-byte aligned base: a contiguous view at element offset
+    # 3 of a flat buffer is copied (.contiguous() would return it as it is)
+    from quantizers_tpu_torch.ops.flash import _kernel_view
+
+    buf = torch.from_numpy(np.random.default_rng(4).standard_normal(2 * 64 * 128 + 3)
+                           .astype(np.float32)).bfloat16()
+    q = buf[3:].view(1, 2, 64, 128)
+    assert q.is_contiguous() and q.data_ptr() % 16 == 6
+    got = _kernel_view(q)
+    assert got.data_ptr() % 16 == 0 and got.is_contiguous() and torch.equal(got, q)
+
+
+def test_kernel_view_keeps_an_aligned_input():
+    from quantizers_tpu_torch.ops.flash import _kernel_view
+
+    q = torch.zeros((1, 2, 64, 128), dtype=torch.bfloat16)
+    assert q.data_ptr() % 16 == 0
+    assert _kernel_view(q).data_ptr() == q.data_ptr()

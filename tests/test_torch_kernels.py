@@ -167,3 +167,29 @@ def test_cuda_tensors_never_reach_the_plain_version(monkeypatch):
     meta = torch.zeros((2, 512), dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         TK.w4_matmul(meta, tlin)
+
+
+def _offset_view(shape):
+    """A bf16 tensor of ``shape`` as a contiguous view at element offset 3
+    of a flat buffer: its base is 6 bytes past a 16-byte boundary."""
+    n = int(np.prod(shape))
+    buf = torch.from_numpy(np.random.default_rng(3).standard_normal(n + 3).astype(np.float32))
+    view = buf.bfloat16()[3:].view(shape)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 6
+    return view
+
+
+def test_flatten_x_copies_an_unaligned_base():
+    # The matmul kernels copy x 16 bytes at a time and refuse an unaligned
+    # base; .contiguous() would hand such a view on as it is
+    x = _offset_view((2, 4, 256))
+    got, lead = TK._flatten_x(x, 256)
+    assert got.data_ptr() % 16 == 0 and lead == (2, 4)
+    assert torch.equal(got, x.reshape(8, 256))
+
+
+def test_flatten_x_keeps_an_aligned_input():
+    x = torch.zeros((8, 256), dtype=torch.bfloat16)
+    assert x.data_ptr() % 16 == 0
+    got, lead = TK._flatten_x(x, 256)
+    assert got.data_ptr() == x.data_ptr() and lead == (8,)

@@ -31,6 +31,7 @@ from quantizers_tpu_torch.core.scheme import PRESET_SCHEMES as TPRESETS
 from quantizers_tpu_torch.ops import dispatch as td
 from quantizers_tpu_torch.ops import kernels as TK
 from quantizers_tpu_torch.ops import linear as tl
+from test_torch_cuda import NVFP4_PACKED_SMALL
 
 JARGS, TARGS = JPRESETS["NVFP4"].weights, TPRESETS["NVFP4"].weights
 
@@ -182,3 +183,29 @@ def test_int8_layout_goes_to_its_own_wrapper_and_device_check():
     meta = torch.zeros((2, 256), dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         TK.nvfp4_matmul(meta, tlin)
+
+
+@pytest.mark.parametrize("m,k,n,g", NVFP4_PACKED_SMALL)
+def test_nvfp4_packed_plain_matches_pallas_at_card_shapes(m, k, n, g):
+    """The packed kernel's plain version (the card tests' reference) against
+    the JAX Pallas kernel in interpret mode at the small shapes of the
+    packed card tests: ragged M, groups 8, 12, 20 and 32 besides 16, and K/2
+    ending in a partial 64-row stage. Both round each weight to bf16 once
+    and sum in f32 in another order: each output row within 1e-2 of its
+    largest |value| (one bf16 rounding of each output on either side)."""
+    rng = np.random.default_rng(m * k + g)
+    packed = rng.integers(0, 256, (k // 2, n), dtype=np.uint8)
+    scale = (rng.random((k // g, n), dtype=np.float32) * 0.01 + 0.001)
+    scale = torch.from_numpy(scale).bfloat16()
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).bfloat16()
+    meta = (("k", k), ("n", n), ("group_size", g))
+    tlin = tl.QuantLinear(kind="nvfp4", weight=torch.from_numpy(packed), scale=scale, meta=meta)
+    jlin = jl.QuantLinear(kind="nvfp4", weight=jnp.asarray(packed),
+                          scale=jnp.asarray(scale.float().numpy()).astype(jnp.bfloat16), meta=meta)
+    assert TK._nvfp4_reason(tlin) is None
+    want = np.asarray(JK.nvfp4_matmul(jnp.asarray(x.float().numpy()).astype(jnp.bfloat16), jlin,
+                                      interpret=True), np.float32)
+    got = TK.nvfp4_matmul_plain(x, tlin.weight, tlin.scale, g).float().numpy()
+    assert got.shape == want.shape == (m, n)
+    err = np.abs(got - want).max(axis=1)
+    assert (err <= 1e-2 * np.abs(want).max(axis=1)).all(), err.max()
