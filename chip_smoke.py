@@ -257,6 +257,29 @@ def check_matmul(name, kernel, plain_fn, gen, k, n, m, g, timed: bool,
     return time_matmul(kernel, plain_fn, x, lin, row) if timed else row
 
 
+#: the four w4 calls of a Qwen3-4B decoder layer (K, N): qkv, o_proj,
+#: gate|up and down, as serving_layout fuses them
+W4_LAYER = {"qkv": (2560, 4096 + 2 * 1024), "o_proj": (4096, 2560), "gate_up": (2560, 2 * 9728),
+            "down": (9728, 2560)}
+
+
+def w4_layer(gen, m: int, timed: bool = True) -> dict:
+    """K1 at the four W4_LAYER shapes with ``m`` rows of x, each checked
+    against its plain version and, with ``timed``, timed (time_matmul);
+    logs the sum of the four device times."""
+    from quantizers_tpu_torch.ops import kernels as K
+
+    plain4 = lambda x, lin: K.w4_matmul_plain(x, lin.weight, lin.scale, GROUP)  # noqa: E731
+    rows = {}
+    for label, (k, n) in W4_LAYER.items():
+        rows[label] = check_matmul("w4_matmul", K.w4_matmul, plain4, gen, k, n, m, GROUP, timed)
+        log(f"[kernels] w4 {label} m={m}: {rows[label]}")
+    if timed:
+        log(f"[kernels] w4 layer m={m}: dev_ms {sum(r['dev_ms'] for r in rows.values())}, "
+            f"library_dev_ms {sum(r['library_dev_ms'] for r in rows.values())}")
+    return rows
+
+
 def check_decode_attention(gen, timed: bool):
     from quantizers_tpu_torch.ops import kernels as K
 
@@ -327,9 +350,11 @@ def check_decode_attention(gen, timed: bool):
 
     before = K.decode_attention.launches
     row["ms"] = cuda_ms(kern)
+    row["dev_ms"] = device_ms(kern)
     K.decode_attention.launches = before
     row["plain_ms"] = cuda_ms(plain, iters=10)
     row["library_ms"] = cuda_ms(library)
+    row["library_dev_ms"] = device_ms(library)
     n_pos = 256  # positions 0..255
     nbytes = (q.numel() * 2 * 2  # q in, ctx out
               + 2 * nk.numel() * 2  # new rows in
@@ -824,6 +849,7 @@ def check_slot(gen, payload: str, timed: bool) -> dict:
                                      for el in stacks)])
     before = wrapper.launches
     row["ms"] = cuda_ms(lambda: wrapper(x, idx, *copies()))
+    row["dev_ms"] = device_ms(lambda: wrapper(x, idx, *copies()))
     wrapper.launches = before
     row["plain_ms"] = cuda_ms(lambda: plain(x, idx, *copies()), iters=3, warmup=1)
     # the yardstick: two torch.bmm calls on experts gathered and dequantized
@@ -840,6 +866,7 @@ def check_slot(gen, payload: str, timed: bool) -> dict:
         return torch.bmm(a[:, None, :], dn_b)[:, 0]
 
     row["library_ms"] = cuda_ms(library)
+    row["library_dev_ms"] = device_ms(library)
     row["library"] = "two torch.bmm on pre-gathered bf16 experts"
     del gu_b, dn_b
     nbytes = S * D * 2 + S * 4 + distinct * per_expert + S * D * 4
@@ -1862,9 +1889,11 @@ def check_mla_decode(gen, L: int, timed: bool) -> dict:
 
     before = K.mla_decode_attention.launches
     row["ms"] = cuda_ms(kern)
+    row["dev_ms"] = device_ms(kern)
     K.mla_decode_attention.launches = before  # timing launches are not main-path launches
     row["plain_ms"] = cuda_ms(plain, iters=10)
     row["library_ms"] = cuda_ms(library)
+    row["library_dev_ms"] = device_ms(library)
     row["library"] = ("scaled_dot_product_attention(enable_gqa=True), backends taking it: "
                       + ",".join(sdpa_backends(qcat, *kv(), attn_mask=mask, scale=sm,
                                                enable_gqa=True)))
@@ -2169,17 +2198,11 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     detail = {"device": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
               "build_s": _build.INFO.seconds}
-    D, F, Q, KVD = 2560, 9728, 4096, 1024
-    w4_shapes = {"qkv": (D, Q + 2 * KVD), "o_proj": (Q, D), "gate_up": (D, 2 * F), "down": (F, D)}
-    w4_rows = {}
-    plain4 = lambda x, lin: K.w4_matmul_plain(x, lin.weight, lin.scale, GROUP)  # noqa: E731
+    # K1 at decode (m 8: the kernels line's layer sum) and at the batcher's
+    # row prefills (m 32, 128)
+    w4_rows = {f"{label}@m{m}": r for m in (8, 32, 128) for label, r in w4_layer(gen, m).items()}
     plain8 = lambda x, lin: K.w8_matmul_plain(x, lin.weight, lin.scale,  # noqa: E731
                                               lin.meta_dict["group_size"])
-    for label, (k, n) in w4_shapes.items():
-        for m in (8, 32, 128):
-            r = check_matmul("w4_matmul", K.w4_matmul, plain4, gen, k, n, m, GROUP, timed=m == 8)
-            w4_rows[f"{label}@m{m}"] = r
-            log(f"[kernels] w4 {label} m={m}: {r}")
     w8_rows = {"head@m8": check_matmul("w8_matmul", K.w8_matmul, plain8, gen, 2560, 152064, 8,
                                        None, timed=True),
                "group32@m8": check_matmul("w8_matmul", K.w8_matmul, plain8, gen, 2560, 6144, 8,
@@ -2233,8 +2256,6 @@ def main() -> int:
 
     # phase 15: the kernels line (w4, the NVFP4 and the fp8 matmuls: the four
     # calls of one decoder layer at m = 8, summed)
-    timed4 = [w4_rows[f"{lbl}@m8"] for lbl in w4_shapes]
-
     def total(rows, key):
         return sum(r[key] for r in rows)
 
@@ -2254,9 +2275,7 @@ def main() -> int:
     kernels_line = [
         {"name": "w4_matmul", "route": "cuda", "source": src + "w4_matmul.cu",
          "replaces": "quantizers_tpu/ops/kernels.py:159", "launches": counts["w4_matmul"],
-         "path": "slice 1 decode", **worst(w4_rows), "ms": total(timed4, "ms"),
-         "plain_ms": total(timed4, "plain_ms"), "bound_ms": total(timed4, "bound_ms"),
-         "bound_by": "bytes", "library_ms": total(timed4, "library_ms")},
+         "path": "slice 1 decode", **worst(w4_rows), **layer_sum(w4_rows), "bound_by": "bytes"},
         {"name": "w8_matmul", "route": "cuda", "source": src + "w8_matmul.cu",
          "replaces": "quantizers_tpu/ops/kernels.py:581", "launches": counts_moe["w8_matmul"],
          "path": "A decode", **worst(w8_all), "ms": w8_rows["head@m8"]["ms"],
@@ -2267,9 +2286,9 @@ def main() -> int:
          "replaces": "quantizers_tpu/ops/kernels.py:768",
          "launches": counts_moe["decode_attention"], "path": "A decode",
          "max_abs_err": attn["max_abs_err"], "tol": attn["tol"],
-         "worst_at": attn["worst_at"], "ms": attn["ms"],
-         "plain_ms": attn["plain_ms"], "bound_ms": attn["bound_ms"],
-         "bound_by": attn["bound_by"], "library_ms": attn["library_ms"]},
+         "worst_at": attn["worst_at"],
+         **{key: attn[key] for key in ("ms", "dev_ms", "plain_ms", "bound_ms", "bound_by",
+                                       "library_ms", "library_dev_ms")}},
         {"name": "nvfp4_matmul", "route": "cuda", "source": src + "nvfp4_matmul.cu",
          "replaces": "quantizers_tpu/ops/kernels.py:329",
          "launches": side["C_packed"]["launches_per_step"]["nvfp4_matmul"] * SIDE_STEPS,
@@ -2286,13 +2305,15 @@ def main() -> int:
          "path": "B packed decode",
          **worst(s2["moe_slot_ffn"]),
          **{key: s2["moe_slot_ffn"]["packed"][key]
-            for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
+            for key in ("ms", "dev_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                        "library_dev_ms")}},
         {"name": "moe_slot_gu_ffn", "route": "cuda", "source": src + "moe_slot_gu_ffn.cu",
          "replaces": "quantizers_tpu/ops/kernels.py:1304",
          "launches": counts_moe["moe_slot_gu_ffn"], "path": "A decode",
          **worst(s2["moe_slot_gu_ffn"]),
          **{key: s2["moe_slot_gu_ffn"]["w8pc"][key]
-            for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
+            for key in ("ms", "dev_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                        "library_dev_ms")}},
         {"name": "flash_attention", "route": "cuda", "source": src + "flash_attention.cu",
          "replaces": "quantizers_tpu/ops/flash.py:86",
          "launches": counts_d["flash_attention"], "path": "D eval", **worst(fl),
@@ -2308,7 +2329,8 @@ def main() -> int:
          "launches": counts_e["mla_decode_attention"], "path": "E decode",
          **worst(s5["mla_decode_attention"]),
          **{key: s5["mla_decode_attention"]["L192"][key]
-            for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
+            for key in ("ms", "dev_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                        "library_dev_ms")}},
     ]
     check(all(k["launches"] > 0 for k in kernels_line), "a kernel never launched on its path")
     detail["total_s"] = time.perf_counter() - t_start

@@ -202,6 +202,37 @@ static inline EncodeTiled tensor_map_encoder() {
   return fn;
 }
 
+// A tensor map of a row-major (rows, cols) matrix of `type`, `row_bytes`
+// apart, read in boxes of box_rows x box_cols; rows past `rows` read as
+// zeros. With the 128-byte swizzle (the default) a box row is 128 bytes,
+// and piece c of row r lands at c ^ (r % 8) (w_off's layout); with none, a
+// box is stored row-major as it is.
+static inline bool make_map_2d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                               int cols, int rows, long long row_bytes, int box_cols,
+                               int box_rows,
+                               CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+  EncodeTiled fn = tensor_map_encoder();
+  if (!fn) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// One box of a 2-D tensor map (coordinates c0 innermost) into shared
+// memory, completing on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // Sum the partial results red[warp][m][c] (c < cols) of a block's WARPS
 // warps in a fixed order and write rows m0.. of the bf16 output at col0.
 template <int WARPS>

@@ -41,7 +41,8 @@
 //   the block's outputs; every rank sends its partial sums of them to that
 //   rank (st.async into its shared memory, completing on its mbarrier),
 //   and the owner adds them in rank order and writes them. No cluster-wide
-//   barrier ends the kernel: a rank exits once its own outputs are out.
+//   barrier ends the kernel: a rank exits once its own outputs are out
+//   (the reduction, the split rule and the cluster launch: splitk.cuh).
 // * A warp's A fragments come from the staged tile with one
 //   ldmatrix.x4.trans per 32 K rows (piece c of row r at c ^ (r % 8), the
 //   TMA swizzle, common.cuh: w_off): lane (g, t) gets the bytes of K rows
@@ -60,9 +61,7 @@
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
 
-#include <atomic>
-
-#include "common.cuh"
+#include "splitk.cuh"
 
 namespace {
 using namespace qtt;
@@ -71,7 +70,6 @@ constexpr int kTiles = 8;           // m16 column tiles per block
 constexpr int kCols = 16 * kTiles;  // output columns per block
 constexpr int kRows = 128;          // K rows per stage
 constexpr int kBlock = 128;         // the side of a scale block
-constexpr int kMaxSplit = 8;        // most blocks of a cluster (the portable limit)
 constexpr int kAhead = 4;           // stages a scale is read ahead of its use
 static_assert(kCols == kBlock && kRows == kBlock, "a block's stage lies in one scale block");
 static_assert(kCols == kLine, "a staged K row is one 128-byte line (common.cuh: w_off)");
@@ -99,17 +97,6 @@ struct Stage {
   static constexpr int kSmem = kStages * kBytes + kOut * 4 + (3 * kStages + 1) * 8 + 1024;
   static_assert(kBytes % 1024 == 0 && kSmem <= 113 * 1024, "ring");
 };
-
-// One box of a 2-D tensor map (coordinates c0 innermost) into shared
-// memory, completing on `bar`.
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
-                                            uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
-      : "memory");
-}
 
 // The bytes of an ldmatrix.trans register, (k, c0), (k, c1), (k+1, c0),
 // (k+1, c1), E4M3 codes, times the stage's scale s, as the bf16 pairs
@@ -153,22 +140,18 @@ fp8_kernel(const __grid_constant__ CUtensorMap tw, const __grid_constant__ CUten
   const int s0 = all * rank / ranks;
   const int nk = all * (rank + 1) / ranks - s0;
 
-  if (warp == W && lane == 0) {
-    asm volatile("prefetch.tensormap [%0];\n" ::"l"(&tw) : "memory");
-    asm volatile("prefetch.tensormap [%0];\n" ::"l"(&tx) : "memory");
+  if (threadIdx.x == 0) {
     for (int i = 0; i < S; ++i) {
       mbar_init(full + 2 * i, 1);
       mbar_init(full + 2 * i + 1, 1);
       mbar_init(empty + i, W);
     }
-    mbar_init(reduced, 1);
-    mbar_expect(reduced, St::kOut * 4);  // every rank's partials of this rank's outputs
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();
-  // the other ranks may send to `reduced` once every rank has passed here
-  // (the wait comes before the first send)
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  if (warp == W && lane == 0) {
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(&tw) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(&tx) : "memory");
+  }
+  push_init(reduced, St::kOut * 4);  // its fence and barrier publish these barriers too
 
   float acc[MG][4];
 #pragma unroll
@@ -240,104 +223,24 @@ fp8_kernel(const __grid_constant__ CUtensorMap tw, const __grid_constant__ CUten
     }
   }
 
-  // The cluster's shares of K are added in a fixed order. Output e of the
-  // block (row e / 128, column e % 128) belongs to rank e / share: every
-  // rank stores its partial sum of e into slot rank of that rank's buffer,
-  // completing on its `reduced` barrier; each rank then adds its outputs'
-  // partials rank by rank and writes them. No rank reads another's shared
-  // memory, so each may exit as soon as its own outputs are written.
-  const int share = St::kOut / ranks;
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-  if (warp < W) {
-    // c0, c2 are rows 2t of columns col, col + 1; c1, c3 rows 2t + 1
-#pragma unroll
-    for (int mg = 0; mg < MG; ++mg)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int e = (mg * 8 + 2 * t + h) * kCols + col;
-        const int owner = e / share;
-        st_async_f32x2(map_rank(red + rank * share + e - owner * share, owner), acc[mg][h],
-                       acc[mg][2 + h], map_rank(reduced, owner));
-      }
-  }
-  mbar_wait(reduced, 0);
-  for (int j = 2 * threadIdx.x; j < share; j += 2 * St::kThreads) {
-    const int e = rank * share + j;
-    const int m = e / kCols, c = e % kCols;
-    if (m0 + m >= M) break;  // j grows with m
-    float2 sum = make_float2(0.f, 0.f);
-    for (int r = 0; r < ranks; ++r) {
-      const float2 v = *reinterpret_cast<const float2*>(red + r * share + j);
-      sum.x += v.x;
-      sum.y += v.y;
-    }
-    *reinterpret_cast<__nv_bfloat162*>(out + (size_t)(m0 + m) * N + n0 + c) =
-        __floats2bfloat162_rn(sum.x, sum.y);
-  }
-}
-
-// A tensor map of a row-major (rows, cols) matrix of `type`, `row_bytes`
-// apart, read in boxes of box_rows x box_cols (box_cols of 128 bytes) with
-// the 128-byte swizzle; rows past `rows` read as zeros.
-bool make_map_2d(CUtensorMap* map, CUtensorMapDataType type, const void* base, int cols,
-                 int rows, long long row_bytes, int box_cols, int box_rows) {
-  EncodeTiled fn = tensor_map_encoder();
-  if (!fn) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t unit[2] = {1, 1};
-  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  // the cluster's shares of K, added in a fixed order (splitk.cuh)
+  push_store<MG, kCols, St::kThreads>(acc, red, reduced, out, M, N, m0, n0, col, t);
 }
 
 template <int MG>
 int launch(const void* x, const void* w, const void* scale, void* out, int M, int K, int N,
            cudaStream_t stream) {
-  constexpr int smem = Stage<MG>::kSmem;
   CUtensorMap tw, tx;
   if (!make_map_2d(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, N, K, N, kCols, kRows / 2) ||
       !make_map_2d(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M, 2LL * K, 64, 8 * MG))
     return (int)cudaErrorInvalidValue;
-  // the shared-memory limit is raised, and the SMs counted, once per device
-  static std::atomic<uint64_t> raised{0};
-  static std::atomic<int> sms[64];
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  const uint64_t bit = 1ull << (dev & 63);
-  if (!(raised.load() & bit)) {
-    e = cudaFuncSetAttribute(fp8_kernel<MG>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    int count = 0;
-    e = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return (int)e;
-    sms[dev & 63].store(count);
-    raised.fetch_or(bit);
-  }
-  // split K over a cluster of the fewest blocks (a power of two, at most
-  // 8) that puts a block on every SM, each block keeping 2 stages or more:
-  // all blocks then run in one wave (2 fit an SM)
-  const int tiles = (N / kCols) * ((M + 8 * MG - 1) / (8 * MG));
-  const int stages = K / kRows;
-  int split = 1;
-  while (split < kMaxSplit && tiles * split < sms[dev & 63].load() && stages >= 4 * split)
-    split *= 2;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(N / kCols, (M + 8 * MG - 1) / (8 * MG), split);
-  cfg.blockDim = dim3(Stage<MG>::kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = split;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, fp8_kernel<MG>, tw, tx, static_cast<const float*>(scale),
-                                 static_cast<__nv_bfloat16*>(out), M, K, N);
+  // K's 128-row stages split over a cluster by splitk.cuh's rule, without
+  // the second doubling
+  static DeviceOnce once;
+  return launch_split(once, fp8_kernel<MG>, N / kCols, (M + 8 * MG - 1) / (8 * MG),
+                      Stage<MG>::kThreads, Stage<MG>::kSmem, K / kRows, false, stream, tw, tx,
+                      static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(out), M, K,
+                      N);
 }
 
 }  // namespace

@@ -36,7 +36,9 @@
 //   pushes its partial sums of them to that rank (st.async into its shared
 //   memory, completing on its mbarrier), and the owner adds them in rank
 //   order and writes them. No closing cluster barrier: a rank exits once
-//   its own outputs are out (the reduction of K9, fp8_matmul.cu).
+//   its own outputs are out (the reduction of K9, fp8_matmul.cu). The
+//   reduction, the split rule and the cluster launch live in splitk.cuh,
+//   shared with the W4A16 kernel (w4_matmul.cu).
 // * The weight tile is staged with cp.async, 16 bytes a copy, 8 threads a
 //   128-byte row, in a ring of stages of 128 K rows; the x rows and the
 //   scale rows of the same K range ride in the same stage, as bf16. One
@@ -84,10 +86,9 @@
 // path for scales below 4 and integer work moved to the multiply pipe were
 // both slower.
 
-#include <atomic>
 #include <type_traits>
 
-#include "common.cuh"
+#include "splitk.cuh"
 
 namespace {
 using namespace qtt;
@@ -95,7 +96,6 @@ using namespace qtt;
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kCols = 16 * kWarps;  // output columns per block: one m16 tile a warp
-constexpr int kMaxSplit = 8;        // most blocks of a cluster (the portable limit)
 constexpr int kRingBytes = 113 * 1024;  // a block's shared memory: 2 blocks fit an SM
 
 static_assert(kCols == kLine, "a staged row is one 128-byte line (common.cuh: w_off)");
@@ -218,59 +218,6 @@ __device__ __forceinline__ void row_scales(const __nv_bfloat16* __restrict__ sca
   s1b = __highs2bfloat162(row[2], row[3]);
 }
 
-// The cluster's shares of K added in a fixed order, pushed: output e of the
-// block (row e / 128, column e % 128) belongs to rank e / share. Every rank
-// stores its partial sum of e into slot `rank` of the owner's buffer `red`,
-// completing on the owner's `reduced` barrier (armed by push_init); each
-// rank then adds its outputs' partials rank by rank and writes them. No
-// rank reads another's shared memory, so each exits once its own outputs
-// are written.
-__device__ __forceinline__ void push_init(uint64_t* reduced, int bytes) {
-  if (threadIdx.x == 0) {
-    mbar_init(reduced, 1);
-    mbar_expect(reduced, bytes);  // every rank's partials of this rank's outputs
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  // the other ranks may send to `reduced` once every rank has passed here
-  // (push_store waits before the first send)
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-
-template <int MG>
-__device__ __forceinline__ void push_store(const float (&acc)[MG][4], float* red,
-                                           uint64_t* reduced, __nv_bfloat16* __restrict__ out,
-                                           int M, int N, int m0, int n0, int col, int t) {
-  constexpr int kOut = 8 * MG * kCols;
-  const int ranks = gridDim.z, rank = blockIdx.z;
-  const int share = kOut / ranks;
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-  // c0, c2 are rows 2t of columns col, col + 1; c1, c3 rows 2t + 1
-#pragma unroll
-  for (int mg = 0; mg < MG; ++mg)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int e = (mg * 8 + 2 * t + h) * kCols + col;
-      const int owner = e / share;
-      st_async_f32x2(map_rank(red + rank * share + e - owner * share, owner), acc[mg][h],
-                     acc[mg][2 + h], map_rank(reduced, owner));
-    }
-  mbar_wait(reduced, 0);
-  for (int j = 2 * threadIdx.x; j < share; j += 2 * kThreads) {
-    const int e = rank * share + j;
-    const int m = e / kCols, c = e % kCols;
-    if (m0 + m >= M) break;  // j grows with m
-    float2 sum = make_float2(0.f, 0.f);
-    for (int r = 0; r < ranks; ++r) {
-      const float2 v = *reinterpret_cast<const float2*>(red + r * share + j);
-      sum.x += v.x;
-      sum.y += v.y;
-    }
-    *reinterpret_cast<__nv_bfloat162*>(out + (size_t)(m0 + m) * N + n0 + c) =
-        __floats2bfloat162_rn(sum.x, sum.y);
-  }
-}
-
 // One block: 128 columns (warp w: columns 16w ..) by 8 MG rows of x over
 // its cluster rank's share of K (gridDim.z blocks a cluster split K).
 // kG16: NVFP4's g = 16, the scales staged with the weights; otherwise (any
@@ -375,7 +322,7 @@ nvfp4_i8_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__
       }
     }
   }
-  push_store<MG>(acc, red, reduced, out, M, N, m0, n0, col, t);
+  push_store<MG, kCols, kThreads>(acc, red, reduced, out, M, N, m0, n0, col, t);
 }
 
 // The packed kernel: the same block over stages of kPRows packed rows,
@@ -493,7 +440,7 @@ nvfp4_packed_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restri
       }
     }
   }
-  push_store<MG>(acc, red, reduced, out, M, N, m0, n0, col, t);
+  push_store<MG, kCols, kThreads>(acc, red, reduced, out, M, N, m0, n0, col, t);
 }
 
 // Launch one of the kernels over column tiles, 8 MG-row tiles of x and a
@@ -503,52 +450,13 @@ int launch(const void* x, const void* w, const void* scale, void* out, int M, in
            cudaStream_t stream) {
   using St = std::conditional_t<kPacked, PStage<MG>, IStage<MG>>;
   const auto kernel = kPacked ? nvfp4_packed_kernel<MG, kG16> : nvfp4_i8_kernel<MG, kG16>;
-  constexpr int smem = St::kSmem;
-  // the shared-memory limit is raised, and the SMs counted, once per device
-  static std::atomic<uint64_t> raised{0};
-  static std::atomic<int> sms[64];
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  const uint64_t bit = 1ull << (dev & 63);
-  if (!(raised.load() & bit)) {
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    int count = 0;
-    e = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return (int)e;
-    sms[dev & 63].store(count);
-    raised.fetch_or(bit);
-  }
-  // split K over a cluster of the fewest blocks (a power of two, at most
-  // 8) that puts a block on every SM, each block keeping 2 stages or more;
-  // the packed kernel's split is then doubled while that puts fewer than 2
-  // blocks on every SM and each block keeps 4 stages or more (gate|up at
-  // m 8: 304 blocks, 0.025 -> 0.020 ms on the H100; the int8 kernel lost).
-  // All blocks run in one wave (2 fit an SM). A stage holds 128 K rows in
-  // both layouts.
-  const int tiles = (N / kCols) * ((M + 8 * MG - 1) / (8 * MG));
-  const int stages = (K + 127) / 128, count = sms[dev & 63].load();
-  int split = 1;
-  while (split < kMaxSplit && tiles * split < count && stages >= 4 * split) split *= 2;
-  while (kPacked && split < kMaxSplit && tiles * split < 2 * count && stages >= 8 * split)
-    split *= 2;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(N / kCols, (M + 8 * MG - 1) / (8 * MG), split);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = split;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, kernel, static_cast<const __nv_bfloat16*>(x),
-                                 static_cast<const uint8_t*>(w),
-                                 static_cast<const __nv_bfloat16*>(scale),
-                                 static_cast<__nv_bfloat16*>(out), M, K, N, g);
+  // a stage holds 128 K rows in both layouts; the packed kernel's split
+  // takes the second doubling (splitk.cuh: split_k)
+  static DeviceOnce once;
+  return launch_split(once, kernel, N / kCols, (M + 8 * MG - 1) / (8 * MG), kThreads, St::kSmem,
+                      (K + 127) / 128, kPacked, stream, static_cast<const __nv_bfloat16*>(x),
+                      static_cast<const uint8_t*>(w), static_cast<const __nv_bfloat16*>(scale),
+                      static_cast<__nv_bfloat16*>(out), M, K, N, g);
 }
 
 template <bool kPacked, bool kG16>

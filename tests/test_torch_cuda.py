@@ -48,21 +48,94 @@ def _close(got, ref, rtol):
     assert err <= rtol * ref.float().abs().max().item()
 
 
-@pytest.mark.parametrize("m,k,n,g", [(8, 2560, 6144, 32), (3, 1024, 384, 64),
-                                     (40, 1024, 256, 32), (128, 9728, 2560, 32),
-                                     (5, 768, 128, 48), (9, 2048, 256, 128)])
-def test_w4_kernel_matches_plain(gen, m, k, n, g):
-    lin = QuantLinear(
+#: (m, k, n, g) for the w4 kernel: the tensor-core body at g 16, 32 and 64
+#: (scales staged with the weights) and 48 and 128 (read from device memory),
+#: with 1, 3, 5, 9, 17, 33, 40, 65, 129 and 512 rows (every 8-row grouping of
+#: a block, ragged last tiles, 2 and 8 row tiles); the CUDA-core body at g 8
+#: and 24. The small ones are held against the JAX Pallas kernel on the CPU
+#: (tests/test_torch_w4.py).
+W4_SMALL = [(3, 1024, 384, 64), (40, 1024, 256, 32), (5, 768, 128, 48), (9, 2048, 256, 128),
+            (1, 512, 256, 32), (17, 256, 128, 16), (65, 512, 256, 16), (129, 1024, 384, 32),
+            (512, 1024, 256, 64), (33, 1536, 256, 48), (64, 2048, 128, 128),
+            (8, 512, 256, 8), (65, 256, 128, 8), (9, 768, 128, 24)]
+#: the four Qwen3-4B decode calls (qkv, o_proj, gate|up, down) at g 32 with
+#: 8 rows (decode), 32 and 128 (the batcher's row prefills)
+W4_QWEN3 = [(m, k, n, 32) for m in (8, 32, 128)
+            for k, n in ((2560, 6144), (4096, 2560), (2560, 19456), (9728, 2560))]
+W4_SHAPES = W4_QWEN3 + W4_SMALL
+
+
+def _w4(gen, k, n, g):
+    return QuantLinear(
         kind="w4",
         weight=torch.randint(0, 256, (k // 2, n), dtype=torch.uint8, device="cuda", generator=gen),
         scale=(torch.rand((k // g, n), device="cuda", generator=gen) * 0.01).bfloat16(),
         meta=(("k", k), ("n", n), ("group_size", g)))
+
+
+@pytest.mark.parametrize("m,k,n,g", W4_SHAPES)
+def test_w4_kernel_matches_plain(gen, m, k, n, g):
+    lin = _w4(gen, k, n, g)
     x = torch.randn((m, k), device="cuda", generator=gen).bfloat16()
     before = K.w4_matmul.launches
     got = K.w4_matmul(x, lin)
-    assert K.w4_matmul.launches == before + 1
+    assert K.w4_matmul.launches == before + 1 and got.shape == (m, n)
     _close(got, K.w4_matmul_plain(x, lin.weight, lin.scale, g), 1e-2)
     assert torch.equal(K.w4_matmul(x, lin), got)
+
+
+def w4_one_hot_case(k, n, g, seed):
+    """Packed codes over all 16 values in both nibbles (each column of a
+    packed row sees every code in each nibble) and bf16 scales from
+    subnormals (exponent 0, the smallest 2^-133 among them) up to the
+    largest s at which 8 s is finite in bf16 (exponent 251, mantissa 127),
+    in both planes. Returns the packed bytes, the scales and the
+    dequantized weight bf16((c - 8) s), each product exact in f32."""
+    from quantizers_tpu_torch.ops.linear import _unpack_nibbles
+
+    idx = torch.arange((k // 2) * n).reshape(k // 2, n)
+    lo, hi = idx % 16, (idx // 16 + 7 * idx) % 16
+    assert len(torch.unique(lo[0])) == 16 and len(torch.unique(hi[0])) == 16
+    packed = (lo | (hi << 4)).to(torch.uint8)
+    rng = np.random.default_rng(seed)
+    expo = rng.integers(0, 252, (k // g, n))
+    mant = rng.integers(0, 128, (k // g, n))
+    half = k // (2 * g)  # the hi plane's first group
+    expo[0], mant[0, :2] = 0, (1, 0)  # subnormal scales, the smallest first, in both planes
+    expo[half], mant[half, :2] = 0, (1, 0)
+    expo[1], mant[1] = 251, 127  # the largest
+    expo[half + 1] = 251
+    bits = (expo << 7) | mant
+    scale = torch.from_numpy(bits.astype(np.int16)).view(torch.bfloat16)
+    wq = (_unpack_nibbles(packed).float() * scale.float().repeat_interleave(g, dim=0)).bfloat16()
+    assert torch.isfinite(wq.float()).all() and (wq[:g] != 0).any()
+    return packed, scale, wq
+
+
+@pytest.mark.parametrize("g,k,m", [(32, 512, 8), (16, 512, 64), (64, 1024, 8), (48, 768, 8),
+                                   (128, 2048, 16), (8, 256, 8), (24, 384, 8)])
+def test_w4_kernel_reads_out_every_weight_exactly(gen, g, k, m):
+    """One-hot rows of x read the weights out through the kernel (both
+    bodies, staged and unstaged scales): every code in both nibbles times
+    scales from bf16 subnormals to the top of the range. The kernel never
+    rounds (c - 8) s to bf16; it multiplies the f32 partial sum by the
+    scale, which for one-hot rows is (c - 8) s exactly in f32, rounded once
+    at the output: bit for bit the plain version's and the dequantized
+    rows. This pins the fragment mapping of both planes, the nibble decode
+    and the scale of every column and group."""
+    n = 256
+    packed, scale, wq = w4_one_hot_case(k, n, g, seed=g)
+    packed, scale, wq = packed.cuda(), scale.cuda(), wq.cuda()
+    lin = QuantLinear(kind="w4", weight=packed, scale=scale,
+                      meta=(("k", k), ("n", n), ("group_size", g)))
+    rows = torch.arange(m, device="cuda")
+    for r0 in range(0, k, m):
+        x = torch.zeros((m, k), dtype=torch.bfloat16, device="cuda")
+        x[rows, r0 + rows] = 1
+        got = K.w4_matmul(x, lin)
+        ref = K.w4_matmul_plain(x, packed, scale, g)
+        assert torch.equal(ref, wq[r0:r0 + m])
+        assert torch.equal(got, ref), (r0, (got != ref).nonzero()[:4].tolist())
 
 
 @pytest.mark.parametrize("m,k,n,g,sdt", [(8, 2560, 152064, None, torch.bfloat16),
@@ -253,7 +326,7 @@ def _offset_view(t):
     return view
 
 
-@pytest.mark.parametrize("kind", ["fp8", "nvfp4_i8", "nvfp4_packed"])
+@pytest.mark.parametrize("kind", ["fp8", "nvfp4_i8", "nvfp4_packed", "w4"])
 def test_matmul_kernels_take_an_offset_view(gen, kind):
     """x at an unaligned base is copied to an aligned one before the launch
     (the kernels refuse unaligned bases): the same bits as the aligned call."""
@@ -266,6 +339,8 @@ def test_matmul_kernels_take_an_offset_view(gen, kind):
                           meta=(("k", k), ("n", n), ("strategy", "block"), ("block_k", 128),
                                 ("block_n", 128)))
         wrapper = K.fp8_matmul
+    elif kind == "w4":
+        lin, wrapper = _w4(gen, k, n, 32), K.w4_matmul
     else:
         layout = "int8" if kind == "nvfp4_i8" else "packed"
         lin = _nvfp4(gen, k, n, layout)
