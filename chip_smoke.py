@@ -92,9 +92,10 @@ BF16_FLOPS = 989e12
 #: outputs; a, rounded to bf16 on both sides, may round the other way after
 #: f32 sums in another order, 2^-8 of one term). Decode attention: a
 #: fraction of each (row, KV head)'s own largest |value|, so that the long
-#: rows, whose values are small, are held as closely as the short ones; the
-#: kernel keeps its probabilities in f32 where the plain version rounds them
-#: to bf16 (at most 2^-9 of each term), which with the output's rounding
+#: rows, whose values are small, are held as closely as the short ones; both
+#: round p to bf16, the kernel before it normalises (against the running max
+#: of its share of positions, with ex2.approx) and the plain version after
+#: (at most 2^-9 of each term apart), which with the output's rounding
 #: stays under 1e-2, and the limit is twice that. Flash attention: the same
 #: limit of each (b, h, t) row's own largest |value|, for the same reasons
 #: (a causal row averages ever more keys, so the late rows' values are
@@ -280,10 +281,18 @@ def w4_layer(gen, m: int, timed: bool = True) -> dict:
     return rows
 
 
-def check_decode_attention(gen, timed: bool):
+#: K2's shapes at batch 8: (KV heads, query heads per KV head, cache slots,
+#: the L every row is timed at). main() runs the two serving shapes, slice
+#: 1's Qwen3-4B and path A's Qwen3-30B-A3B mid-decode; "long" (slice 1's
+#: heads over a full 2048-slot cache) is for timing a redesign by hand
+DECODE_SHAPES = {"slice1": (8, 4, MAX_LEN, 255), "path_A": (4, 8, MAX_LEN, 255),
+                 "long": (8, 4, 2048, 2047)}
+
+
+def check_decode_attention(gen, timed: bool, shape: str = "slice1"):
     from quantizers_tpu_torch.ops import kernels as K
 
-    B, KV, rep, hd, S = BATCH, 8, 4, 128, MAX_LEN
+    (KV, rep, S, L_timed), B, hd = DECODE_SHAPES[shape], BATCH, 128
     dev = gen.device
 
     def rnd(*shape):
@@ -304,7 +313,7 @@ def check_decode_attention(gen, timed: bool):
     got = K.decode_attention(q, nk, nv, k1, v1, lengths, sm)
     ref = K.decode_attention_plain(q, nk, nv, k2, v2, lengths, sm)
     torch.cuda.synchronize()
-    check(bool(torch.isfinite(got).all()), "decode_attention: non-finite output")
+    check(bool(torch.isfinite(got).all()), f"decode_attention {shape}: non-finite output")
     # each (row, KV head) against its own largest |value|
     errs = (got.float() - ref.float()).abs().amax(dim=(2, 3))
     tols = RTOL["decode_attention"] * ref.float().abs().amax(dim=(2, 3))
@@ -313,20 +322,22 @@ def check_decode_attention(gen, timed: bool):
     err, tol = errs[b, h].item(), tols[b, h].item()
     worst = f"b={b} kv={h} L={int(lengths[b])}"
     check(bool((ratio <= 1).all()),
-          f"decode_attention: {worst}: max |err| {err:.4g} > tol {tol:.4g}")
+          f"decode_attention {shape}: {worst}: max |err| {err:.4g} > tol {tol:.4g}")
     same = lambda a, b: bool(torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0)))  # noqa: E731
-    check(same(k1, k2) and same(v1, v2), "decode_attention: cache rows written differ")
+    check(same(k1, k2) and same(v1, v2), f"decode_attention {shape}: cache rows written differ")
     L = lengths.clamp(max=S - 1).long()
     rows = torch.arange(B, device=dev)
     check(torch.equal(k1[rows, :, L], nk) and torch.equal(v1[rows, :, L], nv),
-          "decode_attention: new row not at min(length, S-1)")
-    row = {"B": B, "KV": KV, "rep": rep, "S": S, "lengths": lengths.tolist(),
+          f"decode_attention {shape}: new row not at min(length, S-1)")
+    check(torch.equal(K.decode_attention(q, nk, nv, ck.clone(), cv.clone(), lengths, sm), got),
+          f"decode_attention {shape}: differs from run to run")
+    row = {"shape": shape, "B": B, "KV": KV, "rep": rep, "S": S, "lengths": lengths.tolist(),
            "max_abs_err": err, "tol": tol, "worst_at": worst,
            "max_err_per_row": errs.amax(1).tolist(), "tol_per_row": tols.amin(1).tolist()}
     if not timed:
         return row
-    # timing at the serving path's mid-decode state: every row at L = 255
-    Lt = torch.full((B,), 255, dtype=torch.int32, device=dev)
+    # timing with every row at L_timed (the serving path's mid-decode state)
+    Lt = torch.full((B,), L_timed, dtype=torch.int32, device=dev)
     ck, cv = rnd(B, KV, S, hd), rnd(B, KV, S, hd)
     cache_bytes = 2 * ck.numel() * 2
     caches = rotating([(ck, cv)] + [(ck.clone(), cv.clone())
@@ -340,7 +351,7 @@ def check_decode_attention(gen, timed: bool):
         a, b = caches()
         return K.decode_attention_plain(q, nk, nv, a, b, Lt, sm)
 
-    mask = (pos <= 255)[:, None, None, :].expand(B, 1, 1, S)
+    mask = (pos <= L_timed)[:, None, None, :].expand(B, 1, 1, S)
     qh = q.reshape(B, KV * rep, 1, hd)
 
     def library():
@@ -355,13 +366,13 @@ def check_decode_attention(gen, timed: bool):
     row["plain_ms"] = cuda_ms(plain, iters=10)
     row["library_ms"] = cuda_ms(library)
     row["library_dev_ms"] = device_ms(library)
-    n_pos = 256  # positions 0..255
+    n_pos = L_timed + 1  # positions 0..L_timed
     nbytes = (q.numel() * 2 * 2  # q in, ctx out
               + 2 * nk.numel() * 2  # new rows in
-              + 2 * B * KV * 255 * hd * 2  # cached K and V read
+              + 2 * B * KV * L_timed * hd * 2  # cached K and V read
               + 2 * nk.numel() * 2)  # new rows written
     row.update(bound(nbytes, 4 * B * KV * rep * n_pos * hd))
-    row["timed_at"] = "L=255 all rows"
+    row["timed_at"] = f"L={L_timed} all rows"
     return row
 
 
@@ -920,9 +931,9 @@ def offset_view(t: torch.Tensor) -> torch.Tensor:
 def offset_views(gen, detail) -> dict:
     """Phase 3's last part: each wrapper that aligns its inputs by copying
     them (the matmuls through ``_flatten_x``, K4 through ``_kernel_view``,
-    K8's q and new rows), called once with every input at an unaligned
-    base, must give the aligned call's bits; K8 refuses an unaligned cache
-    with a ValueError before it launches."""
+    K2's and K8's q and new rows), called once with every input at an
+    unaligned base, must give the aligned call's bits; K2 and K8 refuse an
+    unaligned cache with a ValueError before they launch."""
     from quantizers_tpu_torch.ops import kernels as K
     from quantizers_tpu_torch.ops.flash import flash_attention
 
@@ -960,18 +971,32 @@ def offset_views(gen, detail) -> dict:
     same("mla_decode_attention",
          K.mla_decode_attention(*offs, cc.clone(), cp.clone(), lengths, 0.0722),
          K.mla_decode_attention(*ins, cc.clone(), cp.clone(), lengths, 0.0722), offs)
-    for which in ("cache_c", "cache_p"):
-        caches = {"cache_c": cc.clone(), "cache_p": cp.clone()}
+    q = torch.randn((B, 4, 8, 128), device=dev, generator=gen).bfloat16()
+    nk, nv = (torch.randn((B, 4, 128), device=dev, generator=gen).bfloat16() for _ in range(2))
+    ck, cv = (torch.randn((B, 4, S, 128), device=dev, generator=gen).bfloat16()
+              for _ in range(2))
+    offs = [offset_view(t) for t in (q, nk, nv)]
+    same("decode_attention",
+         K.decode_attention(*offs, ck.clone(), cv.clone(), lengths, 0.0884),
+         K.decode_attention(q, nk, nv, ck.clone(), cv.clone(), lengths, 0.0884), offs)
+    refusals = [("decode_attention", K.decode_attention, which,
+                 lambda kc, vc: K.decode_attention(q, nk, nv, kc, vc, lengths, 0.0884),
+                 {"cache_k": ck, "cache_v": cv}) for which in ("cache_k", "cache_v")]
+    refusals += [("mla_decode_attention", K.mla_decode_attention, which,
+                  lambda c_, p_: K.mla_decode_attention(*ins, c_, p_, lengths, 0.0722),
+                  {"cache_c": cc, "cache_p": cp}) for which in ("cache_c", "cache_p")]
+    for name, wrapper, which, call, pair in refusals:
+        caches = {key: t.clone() for key, t in pair.items()}
         caches[which] = offset_view(caches[which])
-        before = K.mla_decode_attention.launches
+        before = wrapper.launches
         try:
-            K.mla_decode_attention(*ins, caches["cache_c"], caches["cache_p"], lengths, 0.0722)
+            call(*caches.values())
             refused = False
         except ValueError as e:
             refused = which in str(e)
-        check(refused and K.mla_decode_attention.launches == before,
-              f"mla_decode_attention: an unaligned {which} was not refused by a ValueError")
-        rows[f"mla_decode_attention {which}"] = {"refused": refused}
+        check(refused and wrapper.launches == before,
+              f"{name}: an unaligned {which} was not refused by a ValueError")
+        rows[f"{name} {which}"] = {"refused": refused}
     torch.cuda.synchronize()
     for name, row in rows.items():
         log(f"[kernels] offset view {name}: {row}")
@@ -2211,7 +2236,10 @@ def main() -> int:
         log(f"[kernels] w8 {label}: {r}")
     attn = check_decode_attention(gen, timed=True)
     log(f"[kernels] decode_attention: {attn}")
-    detail["kernels"] = {"w4_matmul": w4_rows, "w8_matmul": w8_rows, "decode_attention": attn}
+    attn_a = check_decode_attention(gen, timed=True, shape="path_A")
+    log(f"[kernels] decode_attention path_A: {attn_a}")
+    detail["kernels"] = {"w4_matmul": w4_rows, "w8_matmul": w8_rows, "decode_attention": attn,
+                         "decode_attention path_A": attn_a}
     s2 = slice2_kernels(gen, detail)
     fl = flash_kernels(gen, detail)
     s5 = slice5_kernels(gen, detail)

@@ -92,6 +92,16 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
                : "memory");
 }
 
+// The same four 8x8 b16 matrices, not transposed: from matrix q, lane i
+// receives elements 2(i%4) and 2(i%4)+1 of row i/4 (low and high half of r[q]).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
 // An asynchronous 16-byte copy from device to shared memory; !valid writes
 // 16 zero bytes and reads nothing.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {

@@ -3,7 +3,8 @@
 // kernels; w4_matmul.cu: the W4A16 kernel): the blocks of a thread block
 // cluster split K, each rank pushes its partial sums to the rank that owns
 // them, and one launch helper picks the split and raises the kernel's
-// shared-memory limit once per device.
+// shared-memory limit once per device. decode_attention.cu's cluster split
+// of positions uses the push barrier and the launch.
 //
 // A kernel built on it holds, per thread of its first kCols / 16 warps, the
 // mma.sync m16n8k16 output fragments acc[MG][4] of its warp's m16 tile (A

@@ -60,6 +60,16 @@ def _flatten_x(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, Tuple[int, ...]]:
     return aligned16(x.reshape(-1, k).to(torch.bfloat16).contiguous()), lead
 
 
+def _check_cache_bases(name: str, **caches: torch.Tensor) -> None:
+    """The decode kernels copy rows 16 bytes at a time: their inputs are
+    copied to an aligned base where needed (``aligned16``), but a cache is
+    written in place and cannot be, so an unaligned one raises."""
+    for key, cache in caches.items():
+        if cache.data_ptr() % 16:
+            raise ValueError(f"{name}: {key} must start 16-byte aligned "
+                             f"(its base is {cache.data_ptr() % 16} bytes past)")
+
+
 def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
     dev = tensors[0].device
     for t in tensors:
@@ -354,8 +364,9 @@ def decode_attention_plain(q, new_k, new_v, cache_k, cache_v, lengths, sm_scale)
     scores = torch.einsum("bkrd,bksd->bkrs", q.float(), kf) * sm_scale
     scores = scores.masked_fill(~valid[:, None, None, :], float("-inf"))
     # the probabilities are rounded to the activation dtype before the value
-    # product, as in the JAX package's Pallas kernel; the CUDA kernel keeps
-    # them in f32 (at most 2^-9 of each term apart)
+    # product, as in the JAX package's Pallas kernel; the CUDA kernel rounds
+    # them too, before it normalises them (against its running max of each
+    # share of positions, so at most 2^-9 of each term apart)
     probs = torch.softmax(scores, dim=-1).to(q.dtype).float()
     return torch.einsum("bkrs,bksd->bkrd", probs, vf).to(q.dtype)
 
@@ -379,9 +390,10 @@ def decode_attention(q: torch.Tensor, new_k: torch.Tensor, new_v: torch.Tensor,
         raise ValueError(f"decode_attention: no kernel for device {q.device}")
     B, KV, rep, hd = q.shape
     S = cache_k.shape[2]
-    q = q.contiguous()
-    new_k = new_k.to(cache_k.dtype).contiguous()
-    new_v = new_v.to(cache_v.dtype).contiguous()
+    _check_cache_bases("decode_attention", cache_k=cache_k, cache_v=cache_v)
+    q = aligned16(q.contiguous())
+    new_k = aligned16(new_k.to(cache_k.dtype).contiguous())
+    new_v = aligned16(new_v.to(cache_v.dtype).contiguous())
     lengths = lengths.to(torch.int32).contiguous()
     _check_cuda("decode_attention", q, new_k, new_v, cache_k, cache_v, lengths)
     lib = _build.load()
@@ -466,12 +478,7 @@ def mla_decode_attention(q_abs: torch.Tensor, q_pe: torch.Tensor, new_c: torch.T
         raise ValueError(f"mla_decode_attention: no kernel for device {q_abs.device}")
     B, H, r = q_abs.shape
     dp, S = q_pe.shape[2], cache_c.shape[2]
-    # the kernel reads rows 16 bytes at a time: the inputs are copied to an
-    # aligned base where needed, the caches (written in place) cannot be
-    for name, cache in (("cache_c", cache_c), ("cache_p", cache_p)):
-        if cache.data_ptr() % 16:
-            raise ValueError(f"mla_decode_attention: {name} must start 16-byte aligned "
-                             f"(its base is {cache.data_ptr() % 16} bytes past)")
+    _check_cache_bases("mla_decode_attention", cache_c=cache_c, cache_p=cache_p)
     q_abs, q_pe = aligned16(q_abs.contiguous()), aligned16(q_pe.contiguous())
     new_c = aligned16(new_c.to(cache_c.dtype).contiguous())
     new_p = aligned16(new_p.to(cache_p.dtype).contiguous())

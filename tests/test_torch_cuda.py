@@ -7,8 +7,9 @@ with one (and without JAX, which the repository's conftest.py imports):
 
 Tolerances as in chip_smoke.py: for the matmuls 1e-2 of the plain output's
 largest |value| (bf16 outputs, f32 sums in another order); for decode
-attention 2e-2 of each (row, KV head)'s own largest |value| (f32 against
-bf16-rounded probabilities), so that long rows, whose values are small,
+attention 2e-2 of each (row, KV head)'s own largest |value| (both sides
+round p to bf16, the kernel before it normalises, against the running max
+of its share of positions), so that long rows, whose values are small,
 are held as closely as short ones; for the slot FFNs 1e-2 of each slot
 row's largest |value| (f32 outputs; a, rounded to bf16 on both sides, may
 round the other way after sums in another order); for flash attention 2e-2
@@ -17,8 +18,8 @@ max over 128-key tiles in the kernel, 64 at head dim 256, and 256-key tiles
 in the plain version);
 for the MLA decode kernel 2e-2 of each (row, head)'s largest |value| (p is
 rounded to bf16 on both sides, after f32 sums in another order), its cache
-rows exactly. The matmul, slot, flash and MLA decode kernels sum in a
-fixed order, so a second call gives the same bits.
+rows exactly. The matmul, slot, flash and both decode-attention kernels
+sum in a fixed order, so a second call gives the same bits.
 """
 
 import math
@@ -157,15 +158,39 @@ def test_w8_kernel_matches_plain(gen, m, k, n, g, sdt):
     assert torch.equal(K.w8_matmul(x, lin), got)
 
 
-@pytest.mark.parametrize("B,KV,rep,S", [(8, 8, 4, 512), (3, 2, 8, 64)])
-def test_decode_attention_matches_plain(gen, B, KV, rep, S):
+#: (B, KV, rep, S, lengths): slice 1's and path A's shapes, rep 1, and a
+#: 2048-slot cache whose lengths leave some ranks of the split empty and some
+#: full (None: random lengths, the first 0)
+DECODE_CASES = [(8, 8, 4, 512, None), (3, 2, 8, 64, None), (8, 4, 8, 512, None),
+                (2, 8, 1, 64, None), (8, 8, 4, 2048, (0, 1, 15, 16, 17, 300, 2047, 2048 + 5))]
+
+
+def _decode_case(gen, B, KV, rep, S, lengths=None):
+    """Decode-attention inputs with NaN in every stale cache row (past
+    min(length, S - 1)): they must never reach a product."""
     def rnd(*shape):
         return torch.randn(shape, device="cuda", generator=gen).bfloat16()
 
     q, nk, nv, ck, cv = rnd(B, KV, rep, 128), rnd(B, KV, 128), rnd(B, KV, 128), \
         rnd(B, KV, S, 128), rnd(B, KV, S, 128)
-    lengths = torch.randint(0, S + 8, (B,), dtype=torch.int32, device="cuda", generator=gen)
-    lengths[0] = 0
+    if lengths is None:
+        lengths = torch.randint(0, S + 8, (B,), dtype=torch.int32, device="cuda", generator=gen)
+        lengths[0] = 0
+    else:
+        lengths = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    stale = torch.arange(S, device="cuda")[None, :] > lengths.clamp(max=S - 1)[:, None]
+    ck[stale[:, None, :, None].expand_as(ck)] = float("nan")
+    cv[stale[:, None, :, None].expand_as(cv)] = float("nan")
+    return q, nk, nv, ck, cv, lengths
+
+
+def _same(a, b):
+    return torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0))
+
+
+@pytest.mark.parametrize("B,KV,rep,S,lengths", DECODE_CASES)
+def test_decode_attention_matches_plain(gen, B, KV, rep, S, lengths):
+    q, nk, nv, ck, cv, lengths = _decode_case(gen, B, KV, rep, S, lengths)
     k1, v1, k2, v2 = ck.clone(), cv.clone(), ck.clone(), cv.clone()
     got = K.decode_attention(q, nk, nv, k1, v1, lengths, 1 / math.sqrt(128))
     ref = K.decode_attention_plain(q, nk, nv, k2, v2, lengths, 1 / math.sqrt(128))
@@ -174,7 +199,23 @@ def test_decode_attention_matches_plain(gen, B, KV, rep, S):
     # each (row, KV head) against its own largest |value|
     err = (got.float() - ref.float()).abs().amax(dim=(2, 3))
     assert (err <= 2e-2 * ref.float().abs().amax(dim=(2, 3))).all(), err
-    assert torch.equal(k1, k2) and torch.equal(v1, v2)
+    assert _same(k1, k2) and _same(v1, v2)
+    rows, L = torch.arange(B, device="cuda"), lengths.clamp(max=S - 1).long()
+    assert torch.equal(k1[rows, :, L], nk) and torch.equal(v1[rows, :, L], nv)
+
+
+def test_decode_attention_repeats_bit_for_bit(gen):
+    """The split's partials are added in a fixed order: two calls on copies
+    of the same inputs give the same ctx and caches, bit for bit."""
+    q, nk, nv, ck, cv, lengths = _decode_case(gen, 8, 8, 4, 2048,
+                                              (0, 1, 15, 16, 17, 300, 2047, 2048 + 5))
+    k1, v1, k2, v2 = ck.clone(), cv.clone(), ck.clone(), cv.clone()
+    got = K.decode_attention(q, nk, nv, k1, v1, lengths, 1 / math.sqrt(128))
+    again = K.decode_attention(q.clone(), nk.clone(), nv.clone(), k2, v2, lengths.clone(),
+                               1 / math.sqrt(128))
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert _same(k1, k2) and _same(v1, v2)
 
 
 def _nvfp4(gen, k, n, layout, g=16):
@@ -359,6 +400,30 @@ def test_flash_attention_takes_offset_views(gen):
                for _ in range(3))
     got = flash_attention(_offset_view(q), _offset_view(k), _offset_view(v), 0.0884)
     assert torch.equal(got, flash_attention(q, k, v, 0.0884))
+
+
+def test_decode_attention_takes_offset_views(gen):
+    """q, new_k and new_v at unaligned bases are copied to aligned ones
+    before the launch: the same bits as the aligned call."""
+    q, nk, nv, ck, cv, lengths = _decode_case(gen, 8, 4, 8, 512)
+    ins = [_offset_view(t) for t in (q, nk, nv)]
+    before = K.decode_attention.launches
+    got = K.decode_attention(*ins, ck.clone(), cv.clone(), lengths, 1 / math.sqrt(128))
+    assert K.decode_attention.launches == before + 1
+    assert torch.equal(got, K.decode_attention(q, nk, nv, ck.clone(), cv.clone(), lengths,
+                                               1 / math.sqrt(128)))
+
+
+def test_decode_attention_refuses_an_unaligned_cache(gen):
+    """A cache is written in place, so it cannot be copied: an unaligned one
+    raises a ValueError naming it, before any launch."""
+    q, nk, nv, ck, cv, lengths = _decode_case(gen, 3, 2, 8, 64)
+    before = K.decode_attention.launches
+    with pytest.raises(ValueError, match="cache_k"):
+        K.decode_attention(q, nk, nv, _offset_view(ck), cv.clone(), lengths, 0.0884)
+    with pytest.raises(ValueError, match="cache_v"):
+        K.decode_attention(q, nk, nv, ck.clone(), _offset_view(cv), lengths, 0.0884)
+    assert K.decode_attention.launches == before
 
 
 def test_mla_decode_attention_refuses_an_unaligned_cache(gen):

@@ -118,8 +118,11 @@ def _decode_inputs(B, KV, rep, hd, S, seed=0):
     return [jnp.asarray(a, jnp.bfloat16) for a in arrs]
 
 
-def test_decode_attention_plain_matches_pallas_interpret():
-    B, KV, rep, hd, S = 4, 2, 2, 128, 32
+@pytest.mark.parametrize("KV,rep,S", [(2, 2, 32), (4, 8, 64), (8, 4, 64), (2, 1, 32)])
+def test_decode_attention_plain_matches_pallas_interpret(KV, rep, S):
+    """The serving head groupings (slice 1: 8 KV heads x 4, path A: 4 x 8)
+    and rep 1, against the JAX kernel in interpret mode."""
+    B, hd = 4, 128
     q, nk, nv, ck, cv = _decode_inputs(B, KV, rep, hd, S)
     lengths = np.array([0, 13, S - 1, S + 3], np.int32)  # empty, mid, last, clamped
     ctx_j, k_j, v_j = JK.decode_attention(q, nk, nv, ck, cv, jnp.asarray(lengths),
