@@ -829,9 +829,40 @@ def routed_ids(gen, tokens: int = BATCH, E: int = 128, k: int = 8) -> torch.Tens
     return torch.topk(logits, k, dim=-1).indices.reshape(-1).to(torch.int32)
 
 
-def check_slot(gen, payload: str, timed: bool) -> dict:
+#: K6's routings and their slot counts: the router's top-8 of 8 tokens (path
+#: B), every slot on one expert, 8 experts of 8 slots, every slot on its own
+#: expert, and the router's top-8 of 15 tokens (the most slots the gathered
+#: path reaches at E 128)
+SLOT_ROUTINGS = {"router": 64, "one_expert": 64, "eight_by_eight": 64, "all_distinct": 64,
+                 "router_s120": 120}
+
+
+def slot_ids(gen, routing: str, S: int, E: int = 128) -> torch.Tensor:
+    """S slot expert ids under one of ``SLOT_ROUTINGS`` (or ``random``:
+    uniform draws); a group's slots lie scattered in slot order."""
+    dev = gen.device
+    if routing.startswith("router"):
+        return routed_ids(gen, S // 8, E)
+    if routing == "random":
+        return torch.randint(0, E, (S,), device=dev, generator=gen, dtype=torch.int32)
+    experts = torch.randperm(E, device=dev, generator=gen)
+    if routing == "one_expert":
+        ids = experts[:1].repeat(S)
+    elif routing == "eight_by_eight":
+        ids = experts[:S // 8].repeat_interleave(8)[torch.randperm(S, device=dev, generator=gen)]
+    elif routing == "all_distinct":
+        ids = experts[:S]
+    else:
+        raise ValueError(f"unknown routing {routing}")
+    return ids.to(torch.int32)
+
+
+def check_slot(gen, payload: str, timed: bool, routing: str = "router") -> dict:
     """K6 (packed w4, packed E2M1, int8-doubled E2M1) or K7 (``w8pc``) at
-    the Qwen3-30B-A3B decode shape: 8 tokens x top-8 = 64 slots."""
+    the Qwen3-30B-A3B decode shape, its slots routed as ``routing`` says
+    (``SLOT_ROUTINGS``; the router: 8 tokens x top-8 = 64 slots). Timed:
+    the device times of the kernel and of the yardstick, and at the router
+    routing the launch-to-launch and plain times too."""
     from quantizers_tpu_torch.models.moe import _slot_dequant
     from quantizers_tpu_torch.ops import kernels as K
 
@@ -843,14 +874,15 @@ def check_slot(gen, payload: str, timed: bool) -> dict:
     else:
         name, wrapper, plain = "moe_slot_ffn", K.moe_slot_ffn, K.moe_slot_ffn_plain
         stacks = moe_stacks(gen, payload, E, D, Fe)
-    idx = routed_ids(gen)
+    idx = slot_ids(gen, routing, SLOT_ROUTINGS[routing], E)
     S = idx.numel()
     x = torch.randn((S, D), device=dev, generator=gen).bfloat16()
+    label = f"{payload} {routing}"
     got = wrapper(x, idx, *stacks)
-    err, tol = row_check(name, got, plain(x, idx, *stacks), payload)
-    check(torch.equal(wrapper(x, idx, *stacks), got), f"{name} {payload}: differs from run to run")
+    err, tol = row_check(name, got, plain(x, idx, *stacks), label)
+    check(torch.equal(wrapper(x, idx, *stacks), got), f"{name} {label}: differs from run to run")
     distinct = int(torch.unique(idx).numel())
-    row = {"S": S, "D": D, "F": Fe, "E": E, "distinct_experts": distinct,
+    row = {"routing": routing, "S": S, "D": D, "F": Fe, "E": E, "distinct_experts": distinct,
            "max_abs_err": err, "tol": tol}
     if not timed:
         return row
@@ -859,10 +891,14 @@ def check_slot(gen, payload: str, timed: bool) -> dict:
                                                          scale=el.scale.clone())
                                      for el in stacks)])
     before = wrapper.launches
-    row["ms"] = cuda_ms(lambda: wrapper(x, idx, *copies()))
-    row["dev_ms"] = device_ms(lambda: wrapper(x, idx, *copies()))
+    prof = device_profile(lambda: [wrapper(x, idx, *copies()) for _ in range(20)], 20)
+    row["dev_ms"] = prof["device_busy_ms_per_step"]
+    # each launched kernel's device time, largest first (gate|up, then down)
+    row["dev_kernels_ms"] = [t["ms_per_step"] for t in prof["top"]]
+    if routing == "router":
+        row["ms"] = cuda_ms(lambda: wrapper(x, idx, *copies()))
+        row["plain_ms"] = cuda_ms(lambda: plain(x, idx, *copies()), iters=3, warmup=1)
     wrapper.launches = before
-    row["plain_ms"] = cuda_ms(lambda: plain(x, idx, *copies()), iters=3, warmup=1)
     # the yardstick: two torch.bmm calls on experts gathered and dequantized
     # to bf16 beforehand (no single PyTorch call computes the slot FFN)
     if payload == "w8pc":
@@ -876,7 +912,8 @@ def check_slot(gen, payload: str, timed: bool) -> dict:
         a = (F.silu(guv[:, :Fe].float()) * guv[:, Fe:].float()).bfloat16()
         return torch.bmm(a[:, None, :], dn_b)[:, 0]
 
-    row["library_ms"] = cuda_ms(library)
+    if routing == "router":
+        row["library_ms"] = cuda_ms(library)
     row["library_dev_ms"] = device_ms(library)
     row["library"] = "two torch.bmm on pre-gathered bf16 experts"
     del gu_b, dn_b
@@ -910,7 +947,11 @@ def slice2_kernels(gen, detail) -> dict:
                                                     128, None, timed=False,
                                                     scale_dtype=torch.float32)
         log(f"[kernels] w8 f32 scales {label}: {rows['w8_matmul_f32'][label]}")
-    rows["moe_slot_ffn"] = {p: check_slot(gen, p, timed=True) for p in ("packed", "int8", "w4")}
+    # K6: the router's routing under the payload's name (the kernels line's
+    # row), the others beside it
+    rows["moe_slot_ffn"] = {
+        p if r == "router" else f"{p}@{r}": check_slot(gen, p, timed=True, routing=r)
+        for r in SLOT_ROUTINGS for p in ("packed", "int8", "w4")}
     rows["moe_slot_gu_ffn"] = {"w8pc": check_slot(gen, "w8pc", timed=True)}
     for key in ("moe_slot_ffn", "moe_slot_gu_ffn"):
         for label, r in rows[key].items():
@@ -931,7 +972,7 @@ def offset_view(t: torch.Tensor) -> torch.Tensor:
 def offset_views(gen, detail) -> dict:
     """Phase 3's last part: each wrapper that aligns its inputs by copying
     them (the matmuls through ``_flatten_x``, K4 through ``_kernel_view``,
-    K2's and K8's q and new rows), called once with every input at an
+    K2's and K8's q and new rows, K6's x), called once with every input at an
     unaligned base, must give the aligned call's bits; K2 and K8 refuse an
     unaligned cache with a ValueError before they launch."""
     from quantizers_tpu_torch.ops import kernels as K
@@ -955,6 +996,13 @@ def offset_views(gen, detail) -> dict:
         x = torch.randn((8, lin.in_features), device=dev, generator=gen).bfloat16()
         xo = offset_view(x)
         same(name, wrapper(xo, lin), wrapper(x, lin), [xo])
+
+    stacks = moe_stacks(gen, "packed", 128, 2048, 768)
+    idx = routed_ids(gen)
+    x = torch.randn((idx.numel(), 2048), device=dev, generator=gen).bfloat16()
+    xo = offset_view(x)
+    same("moe_slot_ffn", K.moe_slot_ffn(xo, idx, *stacks), K.moe_slot_ffn(x, idx, *stacks), [xo])
+    del stacks
 
     q, k, v = (torch.randn((1, 8, 256, 128), device=dev, generator=gen).bfloat16()
                for _ in range(3))

@@ -28,20 +28,6 @@ static inline int gcd_int(int a, int b) {
   return a;
 }
 
-// An E2M1 code (0..15) as a float. The eight magnitudes doubled,
-// {0, 1, 2, 3, 4, 6, 8, 12}, sit in the nibbles of one 32-bit constant, so
-// the decode is a shift and a mask in registers; bit 3 is the sign.
-__device__ __forceinline__ float fp4_value(uint32_t code) {
-  const float mag = (float)((0xC8643210u >> ((code & 7u) * 4u)) & 0xFu) * 0.5f;
-  return (code & 8u) ? -mag : mag;
-}
-
-// Round an f32 to the nearest bf16 (ties to even) and widen it again: the
-// point where the JAX kernels round a dequantized weight to bf16.
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
 // Stage x[m0 : m0+8, k0 : k0+rows] of a row-major bf16 (M, K) activation
 // into shared memory as f32, transposed to [row][m] so that the inner loop
 // reads the 8 activations of one K row as two float4. Rows m >= M are zero.
@@ -135,6 +121,94 @@ __device__ __forceinline__ int w_off(int r, int c) {
 
 __device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ __nv_bfloat162 as_bf162(uint32_t u) {
+  return *reinterpret_cast<const __nv_bfloat162*>(&u);
+}
+
+// --- weight decodes in registers (the tensor-core matmuls and K6) ----------
+//
+// Each takes one ldmatrix.trans register of a staged one-byte-per-column
+// tile: bytes (k, c0), (k, c1), (k+1, c0), (k+1, c1) for a lane's columns
+// c0, c1 and K rows k, k+1 (packed layouts: packed row p, p+1).
+
+// int8-doubled values |v| <= 12 as the bf16 pairs
+// lo = (v(k, c0), v(k+1, c0)) * s0 and hi = (v(k, c1), v(k+1, c1)) * s1.
+__device__ __forceinline__ void dequant_pairs(uint32_t r, __nv_bfloat162 s0, __nv_bfloat162 s1,
+                                              uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = (r & 0x7F7F7F7Fu) ^ 0x40404040u;  // each byte v + 64, in 0..127
+  const __nv_bfloat162 off = __floats2bfloat162_rn(192.f, 192.f);
+  // 0x43 above a byte u is the bf16 128 + u = 192 + v
+  const __nv_bfloat162 v0 = __hsub2(as_bf162(__byte_perm(u, 0x43434343u, 0x4240)), off);
+  const __nv_bfloat162 v1 = __hsub2(as_bf162(__byte_perm(u, 0x43434343u, 0x4341)), off);
+  lo = as_u32(__hmul2(v0, s0));
+  hi = as_u32(__hmul2(v1, s1));
+}
+
+// The E2M1 codes in the top nibble of each 16-bit half of q (bits 12-15 and
+// 28-31) as a bf16 pair times the scale pair s: the sign goes to bit 15, the
+// magnitude code (e, m) to bits 6-8, which is the bf16 of value * 2^-126
+// (code 1, 0.5, the subnormal 2^-127); times 2^126 is exact, times s rounds
+// the exact product once.
+__device__ __forceinline__ uint32_t e2m1_pair(uint32_t q, __nv_bfloat162 s) {
+  const uint32_t bits = (q & 0x80008000u) | ((q >> 6) & 0x01C001C0u);
+  const __nv_bfloat162 two126 = as_bf162(0x7E807E80u);  // 2^126 in both halves
+  return as_u32(__hmul2(__hmul2(as_bf162(bits), two126), s));
+}
+
+// Packed E2M1 (split-half): the A pairs of both planes, lo-plane K rows p,
+// p+1 from the low nibbles, hi-plane rows from the high nibbles, each times
+// its column's scale pair (sl0, sl1: lo plane, columns c0, c1; sh0, sh1: hi).
+__device__ __forceinline__ void dequant_packed(uint32_t r, __nv_bfloat162 sl0,
+                                               __nv_bfloat162 sl1, __nv_bfloat162 sh0,
+                                               __nv_bfloat162 sh1, uint32_t& lo0, uint32_t& lo1,
+                                               uint32_t& hi0, uint32_t& hi1) {
+  hi1 = e2m1_pair(r, sh1);        // high nibbles of bytes 1, 3
+  lo1 = e2m1_pair(r << 4, sl1);   // low nibbles of bytes 1, 3
+  hi0 = e2m1_pair(r << 8, sh0);   // high nibbles of bytes 0, 2
+  lo0 = e2m1_pair(r << 12, sl0);  // low nibbles of bytes 0, 2
+}
+
+// The nibbles at bits 0-3 and 16-19 of q, codes c, as the bf16 pair c - 8:
+// 0x43 above the nibble is the bf16 128 + c, and 136 (0x4308) off it is exact.
+__device__ __forceinline__ uint32_t w4_pair(uint32_t q) {
+  const uint32_t v = (q & 0x000F000Fu) | 0x43004300u;
+  return as_u32(__hsub2(as_bf162(v), as_bf162(0x43084308u)));
+}
+
+// Packed w4 (split-half): the exact codes c - 8 of both planes, lo-plane K
+// rows p, p+1 from the low nibbles, hi-plane rows from the high nibbles, of
+// columns c0 and c1.
+__device__ __forceinline__ void decode_w4(uint32_t r, uint32_t& lo0, uint32_t& lo1, uint32_t& hi0,
+                                          uint32_t& hi1) {
+  lo0 = w4_pair(r);        // low nibbles of bytes 0, 2
+  hi0 = w4_pair(r >> 4);   // high nibbles of bytes 0, 2
+  lo1 = w4_pair(r >> 8);   // low nibbles of bytes 1, 3
+  hi1 = w4_pair(r >> 12);  // high nibbles of bytes 1, 3
+}
+
+// The scale pairs of the k16 step whose rows start at K row k (lo plane;
+// the hi plane's at K/2 + k) for a lane's columns: rows k + 2t, +1 (a0, a1)
+// and k + 8 + 2t, +1 (a2, a3), each as (column c0 pair, column c1 pair),
+// read from device memory (any g). Rows at or past `end` read 0.
+__device__ __forceinline__ void row_scales(const __nv_bfloat16* __restrict__ scale, int k, int end,
+                                           int g, int N, int c, __nv_bfloat162& s0a,
+                                           __nv_bfloat162& s1a, __nv_bfloat162& s0b,
+                                           __nv_bfloat162& s1b) {
+  const __nv_bfloat162 zero = __floats2bfloat162_rn(0.f, 0.f);
+  __nv_bfloat162 row[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int kj = k + (j & 1) + (j >> 1) * 8;
+    row[j] = kj < end ? __ldg(reinterpret_cast<const __nv_bfloat162*>(
+                            scale + (size_t)(kj / g) * N + c))
+                      : zero;
+  }
+  s0a = __lows2bfloat162(row[0], row[1]);
+  s1a = __highs2bfloat162(row[0], row[1]);
+  s0b = __lows2bfloat162(row[2], row[3]);
+  s1b = __highs2bfloat162(row[2], row[3]);
 }
 
 // Is p 16-byte aligned (cp.async's 16-byte copies and TMA's bases need it)?

@@ -20,8 +20,9 @@
 // reads both halves of its columns. The TPU kernel's VMEM limit has no
 // counterpart here.
 //
-// Left for later: group slots by expert, int8 tensor-core products
-// (x quantized per slot, or the weights converted to bf16 in registers).
+// Left for later: K6's grouping of the slots by expert (moe_slot_ffn.cu),
+// int8 tensor-core products (x quantized per slot, or the weights
+// converted to bf16 in registers).
 
 #include "slot_ffn.cuh"
 
@@ -33,11 +34,12 @@ extern "C" int qtt_moe_slot_gu_ffn(const void* x, const void* idx, const void* g
   if (S <= 0 || E <= 0 || D % kSlotCols || F % kSlotCols) return (int)cudaErrorInvalidValue;
   const long long gu_bytes = (long long)D * 2 * F;
   const auto* w = static_cast<const uint8_t*>(guw);
-  const SlotMat G{w, gus, gu_bytes, 2LL * F, 2 * F, 0};
-  const SlotMat U{w, gus, gu_bytes, 2LL * F, 2 * F, F};
-  const SlotMat Dn{static_cast<const uint8_t*>(dw), ds, (long long)F * D, (long long)D, D, 0};
-  return slot_ffn_launch<kInt8PerChannel>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int*>(idx), S, D, F, E, 1, G, U,
-      Dn, static_cast<__nv_bfloat16*>(a_ws), static_cast<float*>(out),
-      reinterpret_cast<cudaStream_t>(stream));
+  const auto* gs = static_cast<const float*>(gus);
+  const SlotMat G{w, gs, gu_bytes, 2LL * F, 2 * F, 0};
+  const SlotMat U{w, gs, gu_bytes, 2LL * F, 2 * F, F};
+  const SlotMat Dn{static_cast<const uint8_t*>(dw), static_cast<const float*>(ds),
+                   (long long)F * D, (long long)D, D, 0};
+  return slot_ffn_launch(static_cast<const __nv_bfloat16*>(x), static_cast<const int*>(idx), S, D,
+                         F, E, G, U, Dn, static_cast<__nv_bfloat16*>(a_ws),
+                         static_cast<float*>(out), reinterpret_cast<cudaStream_t>(stream));
 }

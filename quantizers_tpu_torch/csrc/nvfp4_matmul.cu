@@ -152,72 +152,6 @@ struct PStage {
   static_assert(kBytes % 16 == 0 && kStages >= 2 && kSmem <= kRingBytes, "ring");
 };
 
-__device__ __forceinline__ __nv_bfloat162 as_bf162(uint32_t u) {
-  return *reinterpret_cast<const __nv_bfloat162*>(&u);
-}
-
-// The bytes of an ldmatrix.trans register, (k, c0), (k, c1), (k+1, c0),
-// (k+1, c1), int8-doubled values |v| <= 12, as the bf16 pairs
-// lo = (v(k, c0), v(k+1, c0)) * s0 and hi = (v(k, c1), v(k+1, c1)) * s1.
-__device__ __forceinline__ void dequant_pairs(uint32_t r, __nv_bfloat162 s0, __nv_bfloat162 s1,
-                                              uint32_t& lo, uint32_t& hi) {
-  const uint32_t u = (r & 0x7F7F7F7Fu) ^ 0x40404040u;  // each byte v + 64, in 0..127
-  const __nv_bfloat162 off = __floats2bfloat162_rn(192.f, 192.f);
-  // 0x43 above a byte u is the bf16 128 + u = 192 + v
-  const __nv_bfloat162 v0 = __hsub2(as_bf162(__byte_perm(u, 0x43434343u, 0x4240)), off);
-  const __nv_bfloat162 v1 = __hsub2(as_bf162(__byte_perm(u, 0x43434343u, 0x4341)), off);
-  lo = as_u32(__hmul2(v0, s0));
-  hi = as_u32(__hmul2(v1, s1));
-}
-
-// The E2M1 codes in the top nibble of each 16-bit half of q (bits 12-15 and
-// 28-31) as a bf16 pair times the scale pair s: the sign goes to bit 15, the
-// magnitude code (e, m) to bits 6-8, which is the bf16 of value * 2^-126
-// (code 1, 0.5, the subnormal 2^-127); times 2^126 is exact, times s rounds
-// the exact product once.
-__device__ __forceinline__ uint32_t e2m1_pair(uint32_t q, __nv_bfloat162 s) {
-  const uint32_t bits = (q & 0x80008000u) | ((q >> 6) & 0x01C001C0u);
-  const __nv_bfloat162 two126 = as_bf162(0x7E807E80u);  // 2^126 in both halves
-  return as_u32(__hmul2(__hmul2(as_bf162(bits), two126), s));
-}
-
-// One packed ldmatrix.trans register, bytes (p, c0), (p, c1), (p+1, c0),
-// (p+1, c1), as the A pairs of both planes: lo-plane K rows p, p+1 from
-// the low nibbles, hi-plane rows from the high nibbles, each times its
-// column's scale pair (sl0, sl1: lo plane, columns c0, c1; sh0, sh1: hi).
-__device__ __forceinline__ void dequant_packed(uint32_t r, __nv_bfloat162 sl0,
-                                               __nv_bfloat162 sl1, __nv_bfloat162 sh0,
-                                               __nv_bfloat162 sh1, uint32_t& lo0, uint32_t& lo1,
-                                               uint32_t& hi0, uint32_t& hi1) {
-  hi1 = e2m1_pair(r, sh1);        // high nibbles of bytes 1, 3
-  lo1 = e2m1_pair(r << 4, sl1);   // low nibbles of bytes 1, 3
-  hi0 = e2m1_pair(r << 8, sh0);   // high nibbles of bytes 0, 2
-  lo0 = e2m1_pair(r << 12, sl0);  // low nibbles of bytes 0, 2
-}
-
-// The scale pairs of the k16 step whose rows start at K row k (lo plane;
-// the hi plane's at K/2 + k) for a lane's columns: rows k + 2t, +1 (a0, a1)
-// and k + 8 + 2t, +1 (a2, a3), each as (column c0 pair, column c1 pair),
-// read from device memory (any g). Rows at or past `end` read 0.
-__device__ __forceinline__ void row_scales(const __nv_bfloat16* __restrict__ scale, int k, int end,
-                                           int g, int N, int c, __nv_bfloat162& s0a,
-                                           __nv_bfloat162& s1a, __nv_bfloat162& s0b,
-                                           __nv_bfloat162& s1b) {
-  const __nv_bfloat162 zero = __floats2bfloat162_rn(0.f, 0.f);
-  __nv_bfloat162 row[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int kj = k + (j & 1) + (j >> 1) * 8;
-    row[j] = kj < end ? __ldg(reinterpret_cast<const __nv_bfloat162*>(
-                            scale + (size_t)(kj / g) * N + c))
-                      : zero;
-  }
-  s0a = __lows2bfloat162(row[0], row[1]);
-  s1a = __highs2bfloat162(row[0], row[1]);
-  s0b = __lows2bfloat162(row[2], row[3]);
-  s1b = __highs2bfloat162(row[2], row[3]);
-}
-
 // One block: 128 columns (warp w: columns 16w ..) by 8 MG rows of x over
 // its cluster rank's share of K (gridDim.z blocks a cluster split K).
 // kG16: NVFP4's g = 16, the scales staged with the weights; otherwise (any

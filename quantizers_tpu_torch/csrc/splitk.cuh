@@ -4,7 +4,8 @@
 // cluster split K, each rank pushes its partial sums to the rank that owns
 // them, and one launch helper picks the split and raises the kernel's
 // shared-memory limit once per device. decode_attention.cu's cluster split
-// of positions uses the push barrier and the launch.
+// of positions uses the push barrier and the launch; moe_slot_ffn.cu's
+// launch the raise (raise_once).
 //
 // A kernel built on it holds, per thread of its first kCols / 16 warps, the
 // mma.sync m16n8k16 output fragments acc[MG][4] of its warp's m16 tile (A
@@ -99,6 +100,25 @@ struct DeviceOnce {
   std::atomic<int> sms[64];
 };
 
+// Raise `kernel`'s shared-memory limit to `smem` bytes and note the SM
+// count, once on each device; `dev` is the current device.
+template <typename... P>
+cudaError_t raise_once(DeviceOnce& once, void (*kernel)(P...), int smem, int& dev) {
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const uint64_t bit = 1ull << (dev & 63);
+  if (!(once.raised.load() & bit)) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    int count = 0;
+    e = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    once.sms[dev & 63].store(count);
+    once.raised.fetch_or(bit);
+  }
+  return cudaSuccess;
+}
+
 // Launch `kernel` over col_tiles x row_tiles blocks of `threads`, each
 // with `smem` bytes of dynamic shared memory, K split by split_k over a
 // cluster along z (`stages`: K's 128-row stages).
@@ -107,18 +127,8 @@ int launch_split(DeviceOnce& once, void (*kernel)(P...), int col_tiles, int row_
                  int threads, int smem, int stages, bool doubled, cudaStream_t stream,
                  A... args) {
   int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  const cudaError_t e = raise_once(once, kernel, smem, dev);
   if (e != cudaSuccess) return (int)e;
-  const uint64_t bit = 1ull << (dev & 63);
-  if (!(once.raised.load() & bit)) {
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    int count = 0;
-    e = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return (int)e;
-    once.sms[dev & 63].store(count);
-    once.raised.fetch_or(bit);
-  }
   const int split =
       split_k(col_tiles * row_tiles, stages, once.sms[dev & 63].load(), doubled);
   cudaLaunchConfig_t cfg = {};

@@ -100,28 +100,6 @@ struct Stage {
   static_assert(kBytes % 1024 == 0 && kStages >= 2 && kSmem <= kRingBytes, "ring");
 };
 
-__device__ __forceinline__ __nv_bfloat162 as_bf162(uint32_t u) {
-  return *reinterpret_cast<const __nv_bfloat162*>(&u);
-}
-
-// The nibbles at bits 0-3 and 16-19 of q, codes c, as the bf16 pair c - 8:
-// 0x43 above the nibble is the bf16 128 + c, and 136 (0x4308) off it is exact.
-__device__ __forceinline__ uint32_t w4_pair(uint32_t q) {
-  const uint32_t v = (q & 0x000F000Fu) | 0x43004300u;
-  return as_u32(__hsub2(as_bf162(v), as_bf162(0x43084308u)));
-}
-
-// One packed ldmatrix.trans register, bytes (p, c0), (p, c1), (p+1, c0),
-// (p+1, c1), as the A pairs of both planes: lo-plane K rows p, p+1 from the
-// low nibbles, hi-plane rows from the high nibbles, of columns c0 and c1.
-__device__ __forceinline__ void decode_w4(uint32_t r, uint32_t& lo0, uint32_t& lo1, uint32_t& hi0,
-                                          uint32_t& hi1) {
-  lo0 = w4_pair(r);        // low nibbles of bytes 0, 2
-  hi0 = w4_pair(r >> 4);   // high nibbles of bytes 0, 2
-  lo1 = w4_pair(r >> 8);   // low nibbles of bytes 1, 3
-  hi1 = w4_pair(r >> 12);  // high nibbles of bytes 1, 3
-}
-
 // d = a . b on the tensor cores into a fresh f32 fragment (C = 0).
 __device__ __forceinline__ void mma_bf16_fresh(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                                uint32_t b1) {

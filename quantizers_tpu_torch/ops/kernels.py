@@ -562,7 +562,7 @@ def moe_slot_ffn(x: torch.Tensor, idx: torch.Tensor, gate_el, up_el, down_el) ->
     S, D = x.shape
     Fe = int(gate_el.meta_dict["n"])
     g = int(gate_el.meta_dict.get("group_size", 16 if gate_el.kind == "nvfp4" else 32))
-    xb = x.to(torch.bfloat16).contiguous()
+    xb = aligned16(x.to(torch.bfloat16).contiguous())
     ids = idx.to(torch.int32).contiguous()
     ts = [gate_el.weight, gate_el.scale, up_el.weight, up_el.scale, down_el.weight,
           down_el.scale]

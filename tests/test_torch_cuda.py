@@ -489,19 +489,72 @@ def _close_rows(got, ref, rtol):
     assert (err <= rtol * ref.abs().amax(dim=1)).all(), err
 
 
-@pytest.mark.parametrize("kind,layout,g", [("w4", "packed", 32), ("nvfp4", "packed", 16),
-                                           ("nvfp4", "int8", 16)])
-@pytest.mark.parametrize("S,D,F,E", [(64, 2048, 768, 128), (8, 256, 128, 4)])
-def test_moe_slot_ffn_matches_plain(gen, kind, layout, g, S, D, F, E):
+SLOT_PAYLOADS = [("w4", "packed", 32), ("nvfp4", "packed", 16), ("nvfp4", "int8", 16)]
+#: (S, D, F, E, routing): chip_smoke's routings of K6's slots at path B's
+#: shape (the router's top-8 of 8 tokens, every slot on one expert, 8
+#: experts x 8 slots, every slot on its own expert, the router at 15 tokens:
+#: S 120), and uniform draws, at path B's shape and at a small one
+SLOT_CASES = [(64, 2048, 768, 128, r)
+              for r in ("router", "one_expert", "eight_by_eight", "all_distinct", "random")]
+SLOT_CASES += [(120, 2048, 768, 128, "router_s120"), (8, 256, 128, 4, "random")]
+
+
+def _slot_case(gen, kind, layout, g, S, D, F, E, routing):
+    from chip_smoke import slot_ids
+
     els = [_stack(gen, kind, E, D, F, layout, g), _stack(gen, kind, E, D, F, layout, g),
            _stack(gen, kind, E, F, D, layout, g)]
     x = torch.randn((S, D), device="cuda", generator=gen).bfloat16()
-    idx = torch.randint(0, E, (S,), device="cuda", generator=gen, dtype=torch.int32)
+    return els, x, slot_ids(gen, routing, S, E)
+
+
+@pytest.mark.parametrize("kind,layout,g", SLOT_PAYLOADS)
+@pytest.mark.parametrize("S,D,F,E,routing", SLOT_CASES)
+def test_moe_slot_ffn_matches_plain(gen, kind, layout, g, S, D, F, E, routing):
+    """Each slot row within 1e-2 of its largest |value|, one launch a call,
+    and the same bits on a second call: a group mixed with another's slots,
+    a slot dropped from its group or a ragged 8-slot tile shows here."""
+    els, x, idx = _slot_case(gen, kind, layout, g, S, D, F, E, routing)
     before = K.moe_slot_ffn.launches
     got = K.moe_slot_ffn(x, idx, *els)
     assert K.moe_slot_ffn.launches == before + 1
     _close_rows(got, K.moe_slot_ffn_plain(x, idx, *els), 1e-2)
     assert torch.equal(K.moe_slot_ffn(x, idx, *els), got)
+
+
+#: groups other than the serving layouts' (w4 g 32, NVFP4 g 16): scales staged
+#: a k16 step at a time (16 | g, a group over both planes of down at g 128),
+#: or read a K row at a time from device memory (g 8)
+@pytest.mark.parametrize("kind,layout,g", [("w4", "packed", 8), ("w4", "packed", 64),
+                                           ("w4", "packed", 128), ("nvfp4", "packed", 32),
+                                           ("nvfp4", "int8", 8)])
+def test_moe_slot_ffn_other_groups(gen, kind, layout, g):
+    els, x, idx = _slot_case(gen, kind, layout, g, 16, 256, 128, 8, "random")
+    _close_rows(K.moe_slot_ffn(x, idx, *els), K.moe_slot_ffn_plain(x, idx, *els), 1e-2)
+
+
+@pytest.mark.parametrize("kind,layout,g", SLOT_PAYLOADS)
+def test_moe_slot_ffn_out_of_range_id_gives_a_nan_row(gen, kind, layout, g):
+    """Ids out of range (E, -1) give NaN rows there; the other slots, among
+    them the rest of an expert's group, are as the plain version gives them."""
+    els, x, idx = _slot_case(gen, kind, layout, g, 16, 256, 128, 8, "random")
+    bad = idx.clone()
+    bad[3], bad[9] = 8, -1
+    got = K.moe_slot_ffn(x, bad, *els)
+    torch.cuda.synchronize()
+    assert torch.isnan(got[[3, 9]]).all()
+    ok = [i for i in range(16) if i not in (3, 9)]
+    _close_rows(got[ok], K.moe_slot_ffn_plain(x[ok], idx[ok], *els), 1e-2)
+
+
+def test_moe_slot_ffn_takes_an_offset_view(gen):
+    """x at an unaligned base is copied to an aligned one before the launch:
+    the same bits as the aligned call."""
+    els, x, idx = _slot_case(gen, "nvfp4", "packed", 16, 64, 2048, 768, 128, "router")
+    before = K.moe_slot_ffn.launches
+    got = K.moe_slot_ffn(_offset_view(x), idx, *els)
+    assert K.moe_slot_ffn.launches == before + 1
+    assert torch.equal(got, K.moe_slot_ffn(x, idx, *els))
 
 
 #: (B, H, KV, T, d, dv, causal): the perplexity path's shape, a single

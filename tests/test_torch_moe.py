@@ -187,13 +187,26 @@ def test_converted_expert_stacks():
 # the slot-FFN kernels' plain versions against the Pallas kernels
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("kind,layout", [("w4", "packed"), ("nvfp4", "packed"),
-                                         ("nvfp4", "int8")])
-def test_moe_slot_ffn_plain_matches_pallas_interpret(kind, layout):
-    E, D, Fe, S = 4, 256, 128, 8
+_SLOT_PAYLOADS = [("w4", "packed"), ("nvfp4", "packed"), ("nvfp4", "int8")]
+
+
+@pytest.mark.parametrize(
+    "kind,layout,routing",
+    [pytest.param(k, lay, "mixed", id=f"{k}-{lay}") for k, lay in _SLOT_PAYLOADS]
+    + [pytest.param(k, lay, r, id=f"{k}-{lay}-{r}")
+       for r in ("one_expert", "all_distinct") for k, lay in _SLOT_PAYLOADS])
+def test_moe_slot_ffn_plain_matches_pallas_interpret(kind, layout, routing):
+    """The routings: uniform draws with a repeated expert, every slot on one
+    expert, and every slot on its own expert (E 8), through the JAX kernel's
+    expert sort."""
+    E, D, Fe, S = (8 if routing == "all_distinct" else 4), 256, 128, 8
     jels = _experts(kind, E, D, Fe, 50, layout)
     tels = [params_from_numpy(el, device="cpu") for el in jels]
     xj, ij, xt, it = _slots(S, D, E, 1)
+    if routing != "mixed":
+        ids = np.full(S, 2, np.int32) if routing == "one_expert" else \
+            np.random.default_rng(4).permutation(E).astype(np.int32)
+        ij, it = jnp.asarray(ids), torch.from_numpy(ids)
     want = JK.moe_slot_ffn(xj, ij, *jels, interpret=True)
     TK.reset_launch_counts()
     got = TK.moe_slot_ffn(xt, it, *tels)
