@@ -258,6 +258,50 @@ def check_matmul(name, kernel, plain_fn, gen, k, n, m, g, timed: bool,
     return time_matmul(kernel, plain_fn, x, lin, row) if timed else row
 
 
+def w8_plain(x, lin):
+    """K3's plain version on a w8 linear."""
+    from quantizers_tpu_torch.ops import kernels as K
+
+    return K.w8_matmul_plain(x, lin.weight, lin.scale, lin.meta_dict["group_size"])
+
+
+#: K3's int8 logits heads (K, N) at decode, m 8, bf16 scales per channel:
+#: slice 1's (Qwen3-4B, the kernels line's row) and path A's (Qwen3-30B-A3B),
+#: vocab 151936 padded to 152064, and path E's (DeepSeek-V2-Lite attention),
+#: 102400 padded to 102912 (quantize_lm_head pads to a multiple of 1536)
+W8_HEADS = {"head": (2560, 152064), "head_A": (2048, 152064), "head_E": (2048, 102912)}
+#: the w8pc experts' (K, N) (f32 scales per channel), which path A's row
+#: prefills run at m 32 and 128, two calls per expert and layer
+W8PC_EXPERTS = {"w8pc_gate_up": (2048, 1536), "w8pc_down": (768, 2048)}
+
+
+def w8_heads(gen, timed: bool = True) -> dict:
+    """K3 at the three heads (m 8), each checked against its plain version
+    and timed (time_matmul), and at one g 32 shape checked."""
+    from quantizers_tpu_torch.ops import kernels as K
+
+    rows = {f"{label}@m8": check_matmul("w8_matmul", K.w8_matmul, w8_plain, gen, k, n, 8, None,
+                                        timed)
+            for label, (k, n) in W8_HEADS.items()}
+    rows["group32@m8"] = check_matmul("w8_matmul", K.w8_matmul, w8_plain, gen, 2560, 6144, 8, 32,
+                                      timed=False)
+    for label, r in rows.items():
+        log(f"[kernels] w8 {label}: {r}")
+    return rows
+
+
+def w8_experts(gen, timed: bool = True) -> dict:
+    """K3 at the w8pc expert shapes with f32 scales, m 32 and 128."""
+    from quantizers_tpu_torch.ops import kernels as K
+
+    rows = {f"{label}@m{m}": check_matmul("w8_matmul", K.w8_matmul, w8_plain, gen, k, n, m, None,
+                                          timed, scale_dtype=torch.float32)
+            for m in (32, 128) for label, (k, n) in W8PC_EXPERTS.items()}
+    for label, r in rows.items():
+        log(f"[kernels] w8 f32 scales {label}: {r}")
+    return rows
+
+
 #: the four w4 calls of a Qwen3-4B decoder layer (K, N): qkv, o_proj,
 #: gate|up and down, as serving_layout fuses them
 W4_LAYER = {"qkv": (2560, 4096 + 2 * 1024), "o_proj": (4096, 2560), "gate_up": (2560, 2 * 9728),
@@ -923,10 +967,9 @@ def check_slot(gen, payload: str, timed: bool, routing: str = "router") -> dict:
 
 
 def slice2_kernels(gen, detail) -> dict:
-    """K3 with f32 scales, K5a/K5b at the four Qwen3-4B decode shapes (m 8)
-    and the expert shapes (m 128), K6 in its three payloads and K7."""
-    from quantizers_tpu_torch.ops import kernels as K
-
+    """K3 with f32 scales (the w8pc experts at m 32 and 128), K5a/K5b at the
+    four Qwen3-4B decode shapes (m 8) and the expert shapes (m 128), K6 in
+    its three payloads and K7."""
     D, Fq, Q, KVD = 2560, 9728, 4096, 1024
     decode_shapes = {"qkv": (D, Q + 2 * KVD), "o_proj": (Q, D), "gate_up": (D, 2 * Fq),
                      "down": (Fq, D)}
@@ -940,13 +983,7 @@ def slice2_kernels(gen, detail) -> dict:
             rows[key][f"{label}@m128"] = check_nvfp4(gen, k, n, 128, layout, timed=True)
         for label, r in rows[key].items():
             log(f"[kernels] {key} {label}: {r}")
-    plain8 = lambda x, lin: K.w8_matmul_plain(x, lin.weight, lin.scale,  # noqa: E731
-                                              lin.meta_dict["group_size"])
-    for label, (k, n) in (("w8pc_gate_up@m128", (2048, 1536)), ("w8pc_down@m128", (768, 2048))):
-        rows["w8_matmul_f32"][label] = check_matmul("w8_matmul", K.w8_matmul, plain8, gen, k, n,
-                                                    128, None, timed=False,
-                                                    scale_dtype=torch.float32)
-        log(f"[kernels] w8 f32 scales {label}: {rows['w8_matmul_f32'][label]}")
+    rows["w8_matmul_f32"] = w8_experts(gen)
     # K6: the router's routing under the payload's name (the kernels line's
     # row), the others beside it
     rows["moe_slot_ffn"] = {
@@ -2257,7 +2294,6 @@ def main() -> int:
 
     # phase 2: build
     from quantizers_tpu_torch.ops import _build
-    from quantizers_tpu_torch.ops import kernels as K
 
     _build.load()
     log(f"[build] {'built' if _build.INFO.built else 'loaded'} {_build.INFO.path} "
@@ -2274,14 +2310,7 @@ def main() -> int:
     # K1 at decode (m 8: the kernels line's layer sum) and at the batcher's
     # row prefills (m 32, 128)
     w4_rows = {f"{label}@m{m}": r for m in (8, 32, 128) for label, r in w4_layer(gen, m).items()}
-    plain8 = lambda x, lin: K.w8_matmul_plain(x, lin.weight, lin.scale,  # noqa: E731
-                                              lin.meta_dict["group_size"])
-    w8_rows = {"head@m8": check_matmul("w8_matmul", K.w8_matmul, plain8, gen, 2560, 152064, 8,
-                                       None, timed=True),
-               "group32@m8": check_matmul("w8_matmul", K.w8_matmul, plain8, gen, 2560, 6144, 8,
-                                          32, timed=False)}
-    for label, r in w8_rows.items():
-        log(f"[kernels] w8 {label}: {r}")
+    w8_rows = w8_heads(gen)
     attn = check_decode_attention(gen, timed=True)
     log(f"[kernels] decode_attention: {attn}")
     attn_a = check_decode_attention(gen, timed=True, shape="path_A")
@@ -2354,10 +2383,10 @@ def main() -> int:
          "path": "slice 1 decode", **worst(w4_rows), **layer_sum(w4_rows), "bound_by": "bytes"},
         {"name": "w8_matmul", "route": "cuda", "source": src + "w8_matmul.cu",
          "replaces": "quantizers_tpu/ops/kernels.py:581", "launches": counts_moe["w8_matmul"],
-         "path": "A decode", **worst(w8_all), "ms": w8_rows["head@m8"]["ms"],
-         "plain_ms": w8_rows["head@m8"]["plain_ms"], "bound_ms": w8_rows["head@m8"]["bound_ms"],
-         "bound_by": w8_rows["head@m8"]["bound_by"],
-         "library_ms": w8_rows["head@m8"]["library_ms"]},
+         "path": "A decode", **worst(w8_all),
+         **{key: w8_rows["head@m8"][key]
+            for key in ("ms", "dev_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                        "library_dev_ms")}},
         {"name": "decode_attention", "route": "cuda", "source": src + "decode_attention.cu",
          "replaces": "quantizers_tpu/ops/kernels.py:768",
          "launches": counts_moe["decode_attention"], "path": "A decode",

@@ -61,6 +61,33 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d = a . b on the tensor cores into a fresh f32 fragment (C = 0).
+__device__ __forceinline__ void mma_bf16_fresh(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                               uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
+}
+
+// acc += p * scale for an m16n8 fragment whose A rows are output columns:
+// c0, c1 are column col's (scale s.x), c2, c3 col + 1's.
+__device__ __forceinline__ void fold(float (&acc)[4], const float (&p)[4], float2 s) {
+  acc[0] = fmaf(p[0], s.x, acc[0]);
+  acc[1] = fmaf(p[1], s.x, acc[1]);
+  acc[2] = fmaf(p[2], s.y, acc[2]);
+  acc[3] = fmaf(p[3], s.y, acc[3]);
+}
+
+// The scales of columns col, col + 1 as f32.
+__device__ __forceinline__ float2 scale_pair(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+__device__ __forceinline__ float2 scale_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
 // Two floats as a bf16 pair, the first in the low half.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -117,6 +144,14 @@ constexpr int kLine = 128;
 // ldmatrix matrix (one piece each) fall in 8 distinct 4-bank groups.
 __device__ __forceinline__ int w_off(int r, int c) {
   return r * kLine + ((c ^ (r & 7)) << 4);
+}
+
+// The B fragment register of x row 8 mg + gid, K columns 8c + 2t, + 1 of
+// an x box staged by TMA in the 128-byte swizzle, [8 MG rows][64 bf16] (xp:
+// the box plus gid * 128 + 4t): 16-byte piece c of that row, swizzled by
+// the row mod 8.
+__device__ __forceinline__ uint32_t x_frag(const uint8_t* xp, int mg, int c, int gid) {
+  return *reinterpret_cast<const uint32_t*>(xp + mg * 8 * 128 + ((c ^ gid) << 4));
 }
 
 __device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
@@ -186,6 +221,23 @@ __device__ __forceinline__ void decode_w4(uint32_t r, uint32_t& lo0, uint32_t& l
   hi0 = w4_pair(r >> 4);   // high nibbles of bytes 0, 2
   lo1 = w4_pair(r >> 8);   // low nibbles of bytes 1, 3
   hi1 = w4_pair(r >> 12);  // high nibbles of bytes 1, 3
+}
+
+// int8 codes over their full range (-128..127) as exact bf16 pairs:
+// lo = (v(k, c0), v(k+1, c0)), hi = (v(k, c1), v(k+1, c1)). A bf16 holds
+// each code exactly, but a bf16 magic number holds only 7 bits of it
+// (dequant_pairs); an f32 one holds all 8: 0x4B000000 | u, u = v ^ 0x80, is
+// the f32 2^23 + 128 + v, 2^23 + 128 off it is v, exactly, and the high
+// half of that f32 is the bf16 of v.
+__device__ __forceinline__ void decode_i8(uint32_t r, uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = r ^ 0x80808080u;
+  const float m = 8388736.f;  // 2^23 + 128
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440)) - m;
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7441)) - m;
+  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7442)) - m;
+  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7443)) - m;
+  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f2), 0x7632);
+  hi = __byte_perm(__float_as_uint(f1), __float_as_uint(f3), 0x7632);
 }
 
 // The scale pairs of the k16 step whose rows start at K row k (lo plane;

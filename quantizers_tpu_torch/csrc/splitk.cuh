@@ -1,6 +1,7 @@
 // The skeleton shared by the tensor-core weight-only matmuls over blocks of
 // 128 output columns (nvfp4_matmul.cu: the packed and int8-doubled NVFP4
-// kernels; w4_matmul.cu: the W4A16 kernel): the blocks of a thread block
+// kernels; w4_matmul.cu: the W4A16 kernel; w8_matmul.cu: the int8 kernel;
+// fp8_matmul.cu: the FP8_BLOCK kernel): the blocks of a thread block
 // cluster split K, each rank pushes its partial sums to the rank that owns
 // them, and one launch helper picks the split and raises the kernel's
 // shared-memory limit once per device. decode_attention.cu's cluster split

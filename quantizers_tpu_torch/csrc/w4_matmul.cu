@@ -100,34 +100,6 @@ struct Stage {
   static_assert(kBytes % 1024 == 0 && kStages >= 2 && kSmem <= kRingBytes, "ring");
 };
 
-// d = a . b on the tensor cores into a fresh f32 fragment (C = 0).
-__device__ __forceinline__ void mma_bf16_fresh(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                               uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
-}
-
-// acc += p * scale: c0, c1 are column col's (scale s.x), c2, c3 col + 1's.
-__device__ __forceinline__ void fold(float (&acc)[4], const float (&p)[4], float2 s) {
-  acc[0] = fmaf(p[0], s.x, acc[0]);
-  acc[1] = fmaf(p[1], s.x, acc[1]);
-  acc[2] = fmaf(p[2], s.y, acc[2]);
-  acc[3] = fmaf(p[3], s.y, acc[3]);
-}
-
-// The B fragment register of x row 8 mg + gid, K columns 8c + 2t, + 1 of a
-// staged x box (xp: the box plus gid * 128 + 4t): 16-byte piece c of that
-// row, swizzled by the row mod 8.
-__device__ __forceinline__ uint32_t x_frag(const uint8_t* xp, int mg, int c, int gid) {
-  return *reinterpret_cast<const uint32_t*>(xp + mg * 8 * 128 + ((c ^ gid) << 4));
-}
-
-__device__ __forceinline__ float2 scale_pair(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
 // One block: 128 columns (warp w < 8: columns 16w ..) by 8 MG rows of x
 // over its cluster rank's share of K's stages (gridDim.z blocks a cluster
 // split K); warp 8 is the producer, one of its threads keeps the ring full

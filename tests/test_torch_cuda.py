@@ -139,23 +139,102 @@ def test_w4_kernel_reads_out_every_weight_exactly(gen, g, k, m):
         assert torch.equal(got, ref), (r0, (got != ref).nonzero()[:4].tolist())
 
 
-@pytest.mark.parametrize("m,k,n,g,sdt", [(8, 2560, 152064, None, torch.bfloat16),
-                                         (5, 512, 256, 32, torch.bfloat16),
-                                         (64, 2560, 1024, None, torch.bfloat16),
-                                         (128, 2048, 1536, None, torch.float32),
-                                         (128, 768, 2048, None, torch.float32),
-                                         (3, 512, 256, 32, torch.float32)])
-def test_w8_kernel_matches_plain(gen, m, k, n, g, sdt):
+#: (m, k, n, g, scale dtype) for the w8 kernel (g None: per channel). The
+#: tensor-core body with the scale on each column's finished f32 sum: the
+#: three int8 heads at decode (slice 1's and path A's, vocab 151936 padded to
+#: 152064, and path E's, 102400 padded to 102912), m 64 and 65 (one full and
+#: one ragged 64-row tile), the w8pc experts' (2048, 1536) and (768, 2048)
+#: with f32 scales at the row prefills' m 32 and 128 and at 512; with a fold
+#: a k16 step: g 16, 32, 64 and 128 (scale rows staged with the weights) and
+#: 48 (read from device memory); the CUDA-core body at g 8.
+W8_SHAPES = [(8, 2560, 152064, None, torch.bfloat16), (5, 512, 256, 32, torch.bfloat16),
+             (64, 2560, 1024, None, torch.bfloat16), (128, 2048, 1536, None, torch.float32),
+             (128, 768, 2048, None, torch.float32), (3, 512, 256, 32, torch.float32),
+             (8, 2048, 152064, None, torch.bfloat16), (8, 2048, 102912, None, torch.bfloat16),
+             (32, 2048, 1536, None, torch.float32), (32, 768, 2048, None, torch.float32),
+             (512, 2048, 1536, None, torch.float32), (512, 768, 2048, None, torch.float32),
+             (65, 2560, 1024, None, torch.bfloat16), (65, 1024, 384, 64, torch.bfloat16),
+             (8, 1024, 256, 64, torch.float32), (17, 512, 256, 16, torch.bfloat16),
+             (65, 512, 128, 16, torch.float32), (9, 768, 256, 48, torch.bfloat16),
+             (33, 2048, 256, 128, torch.float32), (8, 512, 256, 8, torch.bfloat16),
+             (65, 256, 384, 8, torch.float32)]
+
+
+def _w8(gen, k, n, g, sdt):
     rows = k // g if g else 1
-    lin = QuantLinear(
+    return QuantLinear(
         kind="w8",
         weight=torch.randint(-127, 128, (k, n), dtype=torch.int8, device="cuda", generator=gen),
         scale=(torch.rand((rows, n), device="cuda", generator=gen) * 0.01).to(sdt),
         meta=(("k", k), ("n", n), ("group_size", g)))
+
+
+@pytest.mark.parametrize("m,k,n,g,sdt", W8_SHAPES)
+def test_w8_kernel_matches_plain(gen, m, k, n, g, sdt):
+    lin = _w8(gen, k, n, g, sdt)
     x = torch.randn((m, k), device="cuda", generator=gen).bfloat16()
+    before = K.w8_matmul.launches
     got = K.w8_matmul(x, lin)
+    assert K.w8_matmul.launches == before + 1 and got.shape == (m, n)
     _close(got, K.w8_matmul_plain(x, lin.weight, lin.scale, g), 1e-2)
     assert torch.equal(K.w8_matmul(x, lin), got)
+
+
+def w8_one_hot_case(k, n, g, sdt, seed):
+    """int8 codes over all 256 values (column j of row r holds code
+    (37 r + 11 j) mod 256 - 128, so each column sees every code in each 256
+    rows) and scales from subnormals (the smallest first) up to where
+    128 s is still finite after the bf16 rounding, in bf16 or f32. Returns
+    the codes, the scales and the dequantized weight bf16(f32(c s))."""
+    r = torch.arange(k)[:, None]
+    j = torch.arange(n)[None, :]
+    w = ((37 * r + 11 * j) % 256 - 128).to(torch.int8)
+    rng = np.random.default_rng(seed)
+    rows = k // g if g else 1
+    if sdt == torch.bfloat16:
+        expo = rng.integers(0, 248, (rows, n))
+        mant = rng.integers(0, 128, (rows, n))
+        expo[0], mant[0, :2] = 0, (1, 0)  # subnormal scales, the smallest first
+        expo[-1, :4] = 247  # the largest
+        scale = torch.from_numpy(((expo << 7) | mant).astype(np.int16)).view(torch.bfloat16)
+    else:
+        expo = rng.integers(0, 247, (rows, n))
+        mant = rng.integers(0, 1 << 23, (rows, n))
+        expo[0], mant[0, :2] = 0, (1, 0)
+        expo[-1, :4], mant[-1, :4] = 246, (1 << 23) - 1
+        scale = torch.from_numpy(((expo << 23) | mant).astype(np.int32)).view(torch.float32)
+    wq = (w.float() * scale.float().repeat_interleave(g or k, dim=0)).bfloat16()
+    assert torch.isfinite(wq.float()).all() and (wq != 0).any()
+    assert len(torch.unique(w[:256, 0])) == 256
+    return w, scale, wq
+
+
+@pytest.mark.parametrize("g,k,m,sdt", [(None, 512, 8, torch.bfloat16),
+                                       (None, 512, 8, torch.float32),
+                                       (32, 512, 8, torch.bfloat16), (32, 512, 8, torch.float32),
+                                       (None, 512, 64, torch.bfloat16), (16, 256, 16, torch.float32),
+                                       (48, 768, 32, torch.bfloat16), (8, 256, 8, torch.float32)])
+def test_w8_kernel_reads_out_every_weight_exactly(gen, g, k, m, sdt):
+    """One-hot rows of x read the weights out through the kernel (every
+    scale mode of both bodies, bf16 and f32 scales): every int8 code times
+    scales from subnormals to the top of the range. The codes are decoded
+    exactly and the scale multiplies the f32 sum, which for a one-hot row is
+    c s in f32, rounded once at the output: bit for bit the plain version's
+    and bf16(f32(c s)). This pins the fragment mapping, the decode over the
+    full code range and the scale of every column and group."""
+    n = 256
+    w, scale, wq = w8_one_hot_case(k, n, g, sdt, seed=k + (g or 0))
+    w, scale, wq = w.cuda(), scale.cuda(), wq.cuda()
+    lin = QuantLinear(kind="w8", weight=w, scale=scale,
+                      meta=(("k", k), ("n", n), ("group_size", g)))
+    rows = torch.arange(m, device="cuda")
+    for r0 in range(0, k, m):
+        x = torch.zeros((m, k), dtype=torch.bfloat16, device="cuda")
+        x[rows, r0 + rows] = 1
+        got = K.w8_matmul(x, lin)
+        ref = K.w8_matmul_plain(x, w, scale, g)
+        assert torch.equal(ref, wq[r0:r0 + m])
+        assert torch.equal(got, ref), (r0, (got != ref).nonzero()[:4].tolist())
 
 
 #: (B, KV, rep, S, lengths): slice 1's and path A's shapes, rep 1, and a
@@ -367,7 +446,7 @@ def _offset_view(t):
     return view
 
 
-@pytest.mark.parametrize("kind", ["fp8", "nvfp4_i8", "nvfp4_packed", "w4"])
+@pytest.mark.parametrize("kind", ["fp8", "nvfp4_i8", "nvfp4_packed", "w4", "w8"])
 def test_matmul_kernels_take_an_offset_view(gen, kind):
     """x at an unaligned base is copied to an aligned one before the launch
     (the kernels refuse unaligned bases): the same bits as the aligned call."""
@@ -382,6 +461,8 @@ def test_matmul_kernels_take_an_offset_view(gen, kind):
         wrapper = K.fp8_matmul
     elif kind == "w4":
         lin, wrapper = _w4(gen, k, n, 32), K.w4_matmul
+    elif kind == "w8":
+        lin, wrapper = _w8(gen, k, n, None, torch.bfloat16), K.w8_matmul
     else:
         layout = "int8" if kind == "nvfp4_i8" else "packed"
         lin = _nvfp4(gen, k, n, layout)

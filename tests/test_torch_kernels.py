@@ -59,6 +59,16 @@ MATMULS = [
     (128, 1024, 8, "group", 64, (3, 1024)),
     (256, 512, 8, "channel", None, (17, 512)),
     (128, 768, 8, "channel", None, (2, 768)),
+    # w8 at the groups and row counts where the card kernel's bodies split:
+    # g 8 (the CUDA-core body), 16 (a fold a k16 step), 64 (staged scale
+    # rows), per channel; 8 rows (one 8-row tile) and 65 (a ragged 64-row tile)
+    (256, 256, 8, "group", 8, (8, 256)),
+    (128, 512, 8, "group", 8, (65, 512)),
+    (256, 512, 8, "group", 16, (8, 512)),
+    (128, 256, 8, "group", 16, (65, 256)),
+    (256, 1024, 8, "group", 64, (8, 1024)),
+    (128, 1024, 8, "group", 64, (65, 1024)),
+    (256, 512, 8, "channel", None, (65, 512)),
 ]
 
 
