@@ -850,18 +850,20 @@ def moe_stacks(gen, payload: str, E: int, D: int, Fe: int, damp: float = 1.0):
     return one(D, Fe, 0.01), one(D, Fe, 0.01), one(Fe, D, 0.01 * damp)
 
 
-def w8pc_stacks(gen, E: int, D: int, Fe: int):
+def w8pc_stacks(gen, E: int, D: int, Fe: int, scale_dtype=torch.float32):
     """The fused w8pc layout: gate|up int8 (E, D, 2F) and down int8 (E, F, D),
-    f32 per-channel scales (E, 1, N)."""
+    codes over the full range -128..127, per-channel scales (E, 1, N), f32
+    as the serving layout holds them (or ``scale_dtype``)."""
     from quantizers_tpu_torch.models.moe import ExpertLinears
 
     dev = gen.device
 
     def one(k, n, meta):
         return ExpertLinears(
-            kind="w8", weight=torch.randint(-127, 128, (E, k, n), dtype=torch.int8, device=dev,
+            kind="w8", weight=torch.randint(-128, 128, (E, k, n), dtype=torch.int8, device=dev,
                                             generator=gen),
-            scale=torch.rand((E, 1, n), device=dev, generator=gen) * 0.0015 + 5e-4,
+            scale=(torch.rand((E, 1, n), device=dev, generator=gen) * 0.0015
+                   + 5e-4).to(scale_dtype),
             meta=(("k", k), ("n", n), ("group_size", None)) + meta)
     return one(D, 2 * Fe, (("fused", "gate_up"),)), one(Fe, D, ())
 
@@ -989,7 +991,10 @@ def slice2_kernels(gen, detail) -> dict:
     rows["moe_slot_ffn"] = {
         p if r == "router" else f"{p}@{r}": check_slot(gen, p, timed=True, routing=r)
         for r in SLOT_ROUTINGS for p in ("packed", "int8", "w4")}
-    rows["moe_slot_gu_ffn"] = {"w8pc": check_slot(gen, "w8pc", timed=True)}
+    # K7 the same way: its router row is the kernels line's
+    rows["moe_slot_gu_ffn"] = {
+        "w8pc" if r == "router" else f"w8pc@{r}": check_slot(gen, "w8pc", timed=True, routing=r)
+        for r in SLOT_ROUTINGS}
     for key in ("moe_slot_ffn", "moe_slot_gu_ffn"):
         for label, r in rows[key].items():
             log(f"[kernels] {key} {label}: {r}")
@@ -1009,9 +1014,9 @@ def offset_view(t: torch.Tensor) -> torch.Tensor:
 def offset_views(gen, detail) -> dict:
     """Phase 3's last part: each wrapper that aligns its inputs by copying
     them (the matmuls through ``_flatten_x``, K4 through ``_kernel_view``,
-    K2's and K8's q and new rows, K6's x), called once with every input at an
-    unaligned base, must give the aligned call's bits; K2 and K8 refuse an
-    unaligned cache with a ValueError before they launch."""
+    K2's and K8's q and new rows, K6's and K7's x), called once with every
+    input at an unaligned base, must give the aligned call's bits; K2 and K8
+    refuse an unaligned cache with a ValueError before they launch."""
     from quantizers_tpu_torch.ops import kernels as K
     from quantizers_tpu_torch.ops.flash import flash_attention
 
@@ -1039,6 +1044,9 @@ def offset_views(gen, detail) -> dict:
     x = torch.randn((idx.numel(), 2048), device=dev, generator=gen).bfloat16()
     xo = offset_view(x)
     same("moe_slot_ffn", K.moe_slot_ffn(xo, idx, *stacks), K.moe_slot_ffn(x, idx, *stacks), [xo])
+    stacks = w8pc_stacks(gen, 128, 2048, 768)
+    same("moe_slot_gu_ffn", K.moe_slot_gu_ffn(xo, idx, *stacks),
+         K.moe_slot_gu_ffn(x, idx, *stacks), [xo])
     del stacks
 
     q, k, v = (torch.randn((1, 8, 256, 128), device=dev, generator=gen).bfloat16()

@@ -631,7 +631,7 @@ def moe_slot_gu_ffn(x: torch.Tensor, idx: torch.Tensor, gu_el, down_el) -> torch
         raise ValueError(f"moe_slot_gu_ffn: no kernel for device {x.device}")
     S, D = x.shape
     Fe = int(gu_el.meta_dict["n"]) // 2
-    xb = x.to(torch.bfloat16).contiguous()
+    xb = aligned16(x.to(torch.bfloat16).contiguous())
     ids = idx.to(torch.int32).contiguous()
     # the scales may be bf16: widening them is exact
     ts = [gu_el.weight, gu_el.scale.float().contiguous(), down_el.weight,

@@ -12,7 +12,8 @@ round p to bf16, the kernel before it normalises, against the running max
 of its share of positions), so that long rows, whose values are small,
 are held as closely as short ones; for the slot FFNs 1e-2 of each slot
 row's largest |value| (f32 outputs; a, rounded to bf16 on both sides, may
-round the other way after sums in another order); for flash attention 2e-2
+round the other way after sums in another order), 1e-3 for K7 on one-hot
+rows of x (each gate and up sum one exact product); for flash attention 2e-2
 of each (b, h, t) row's largest |value| (p rounded to bf16 against a running
 max over 128-key tiles in the kernel, 64 at head dim 256, and 256-key tiles
 in the plain version);
@@ -742,22 +743,104 @@ def test_flash_attention_refuses_other_head_dims(gen):
     assert flash_attention.launches == before
 
 
-@pytest.mark.parametrize("S,D,F,E", [(64, 2048, 768, 128), (8, 256, 128, 4)])
-def test_moe_slot_gu_ffn_matches_plain(gen, S, D, F, E):
-    def w8(k, n):
-        return ExpertLinears(
-            kind="w8", weight=torch.randint(-127, 128, (E, k, n), dtype=torch.int8, device="cuda",
-                                            generator=gen),
-            scale=torch.rand((E, 1, n), device="cuda", generator=gen) * 0.002 + 1e-4,
-            meta=(("k", k), ("n", n), ("group_size", None)))
-    gu, down = w8(D, 2 * F), w8(F, D)
+def _w8pc_case(gen, S, D, F, E, routing, scale_dtype=torch.float32):
+    """K7's inputs: the fused w8pc stacks (codes over -128..127, -128
+    among them), x and the slot ids under one of chip_smoke's routings."""
+    from chip_smoke import slot_ids, w8pc_stacks
+
+    gu, down = w8pc_stacks(gen, E, D, F, scale_dtype)
+    assert all((el.weight == -128).any() for el in (gu, down))
     x = torch.randn((S, D), device="cuda", generator=gen).bfloat16()
-    idx = torch.randint(0, E, (S,), device="cuda", generator=gen, dtype=torch.int32)
+    return (gu, down), x, slot_ids(gen, routing, S, E)
+
+
+def _gu_against_plain(els, x, idx, rtol=1e-2):
+    """One launch a call, each slot row within rtol of its largest |value|,
+    the same bits on a second call; returns the kernel's and the plain
+    version's outputs."""
     before = K.moe_slot_gu_ffn.launches
-    got = K.moe_slot_gu_ffn(x, idx, gu, down)
+    got = K.moe_slot_gu_ffn(x, idx, *els)
     assert K.moe_slot_gu_ffn.launches == before + 1
-    _close_rows(got, K.moe_slot_gu_ffn_plain(x, idx, gu, down), 1e-2)
-    assert torch.equal(K.moe_slot_gu_ffn(x, idx, gu, down), got)
+    ref = K.moe_slot_gu_ffn_plain(x, idx, *els)
+    _close_rows(got, ref, rtol)
+    assert torch.equal(K.moe_slot_gu_ffn(x, idx, *els), got)
+    return got, ref
+
+
+@pytest.mark.parametrize("S,D,F,E,routing", SLOT_CASES)
+def test_moe_slot_gu_ffn_matches_plain(gen, S, D, F, E, routing):
+    """K7 under K6's routings: a group mixed with another's slots, a slot
+    dropped from its group or a ragged 8-slot pass shows here."""
+    _gu_against_plain(*_w8pc_case(gen, S, D, F, E, routing))
+
+
+def _one_hot_rows(gen, S, D):
+    """x whose slot s is the unit row at its own K row k_s (distinct)."""
+    ks = torch.randperm(D, device="cuda", generator=gen)[:S]
+    x = torch.zeros((S, D), dtype=torch.bfloat16, device="cuda")
+    x[torch.arange(S, device="cuda"), ks] = 1.0
+    return x
+
+
+@pytest.mark.parametrize("routing", ["router", "one_expert"])
+def test_moe_slot_gu_ffn_one_hot_readout(gen, routing):
+    """Each slot's x is one-hot, so every gate and up sum is one exact
+    product c * 1 and its f32 scale multiplies it once, as in the plain
+    version: only silu, the rounding of a and the order of the down sums
+    can differ, so each row is held ten times tighter (1e-3). A swapped gate
+    or up half or a misplaced column shows here; a scale applied to the
+    weights, in the read-out of a below."""
+    els, _, idx = _w8pc_case(gen, 64, 2048, 768, 128, routing)
+    _gu_against_plain(els, _one_hot_rows(gen, 64, 2048), idx, rtol=1e-3)
+
+
+def test_moe_slot_gu_ffn_reads_out_a(gen):
+    """One-hot x and a down stack that copies a out (code 1 on its diagonal,
+    scale 1): y[:, :F] is a itself, bf16(silu(c_g s_g) * (c_u s_u)), and
+    must equal the plain version's bit for bit except where silu's last f32
+    bit rounds a the other way (at most 1 in 1,000, by one bf16 step). Codes
+    multiplied by their scale in bf16 before the sum would move a in most
+    places."""
+    (gu, down), _, idx = _w8pc_case(gen, 64, 2048, 768, 128, "router")
+    E, F, D = down.weight.shape
+    eye = torch.zeros((F, D), dtype=torch.int8, device="cuda")
+    eye[torch.arange(F), torch.arange(F)] = 1
+    down = ExpertLinears(kind="w8", weight=eye.expand(E, F, D).contiguous(),
+                         scale=torch.ones((E, 1, D), device="cuda"), meta=down.meta)
+    got, ref = _gu_against_plain((gu, down), _one_hot_rows(gen, 64, 2048), idx)
+    assert torch.equal(got[:, F:], torch.zeros_like(got[:, F:]))
+    a, a_ref = got[:, :F], ref[:, :F]
+    differ = a != a_ref
+    assert differ.sum().item() <= max(2, a.numel() // 1000), differ.sum().item()
+    assert ((a - a_ref).abs() <= 2 ** -7 * a_ref.abs()).all()
+    assert (a_ref != 0).float().mean().item() > 0.9
+
+
+def test_moe_slot_gu_ffn_widens_bf16_scales(gen):
+    _gu_against_plain(*_w8pc_case(gen, 64, 2048, 768, 128, "router", torch.bfloat16))
+
+
+def test_moe_slot_gu_ffn_out_of_range_id_gives_a_nan_row(gen):
+    """Ids out of range (E, -1) give NaN rows there; the other slots, among
+    them the rest of an expert's group, are as the plain version gives them."""
+    els, x, idx = _w8pc_case(gen, 16, 256, 128, 8, "random")
+    bad = idx.clone()
+    bad[3], bad[9] = 8, -1
+    got = K.moe_slot_gu_ffn(x, bad, *els)
+    torch.cuda.synchronize()
+    assert torch.isnan(got[[3, 9]]).all()
+    ok = [i for i in range(16) if i not in (3, 9)]
+    _close_rows(got[ok], K.moe_slot_gu_ffn_plain(x[ok], idx[ok], *els), 1e-2)
+
+
+def test_moe_slot_gu_ffn_takes_an_offset_view(gen):
+    """x at an unaligned base is copied to an aligned one before the launch:
+    the same bits as the aligned call."""
+    els, x, idx = _w8pc_case(gen, 64, 2048, 768, 128, "router")
+    before = K.moe_slot_gu_ffn.launches
+    got = K.moe_slot_gu_ffn(_offset_view(x), idx, *els)
+    assert K.moe_slot_gu_ffn.launches == before + 1
+    assert torch.equal(got, K.moe_slot_gu_ffn(x, idx, *els))
 
 
 #: (m, k, n): the four FP8_BLOCK MLA decode calls (q_proj, o_proj, the fused

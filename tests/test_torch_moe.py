@@ -220,12 +220,19 @@ def test_moe_slot_ffn_plain_matches_pallas_interpret(kind, layout, routing):
     _close_rel(ref, want, 1e-2)
 
 
-def test_moe_slot_gu_ffn_plain_matches_pallas_interpret():
-    E, D, Fe, S = 4, 256, 128, 8
+@pytest.mark.parametrize("routing", ["mixed", "one_expert", "all_distinct"])
+def test_moe_slot_gu_ffn_plain_matches_pallas_interpret(routing):
+    """The routings of the K6 test above, through the JAX kernel's expert
+    sort."""
+    E, D, Fe, S = (8 if routing == "all_distinct" else 4), 256, 128, 8
     g, u, d = _experts("nvfp4", E, D, Fe, 60)
     jmoe = jl.moe_w8pc_layout({"gate_proj": g, "up_proj": u, "down_proj": d})
     tmoe = params_from_numpy(jmoe, device="cpu")
     xj, ij, xt, it = _slots(S, D, E, 2)
+    if routing != "mixed":
+        ids = np.full(S, 2, np.int32) if routing == "one_expert" else \
+            np.random.default_rng(4).permutation(E).astype(np.int32)
+        ij, it = jnp.asarray(ids), torch.from_numpy(ids)
     want = JK.moe_slot_gu_ffn(xj, ij, jmoe["gate_up_proj"], jmoe["down_proj"], interpret=True)
     got = TK.moe_slot_gu_ffn(xt, it, tmoe["gate_up_proj"], tmoe["down_proj"])
     assert got.dtype == torch.float32 and got.shape == (S, D)
