@@ -1882,8 +1882,14 @@ FP8_ATTN, FP8_MLP = ("q_proj", "kv_b_proj", "o_proj"), ("gate_proj", "up_proj", 
 #: (K, N) of the four fp8 calls of a path-E decoder layer at decode
 FP8_SHAPES = {"q_proj": (2048, 3072), "o_proj": (2048, 2048), "gate_up": (2048, 16384),
               "down": (8192, 2048)}
-#: fill lengths of the MLA decode check: empty, the path's mean (timed), full
+#: fill lengths of the MLA decode check: empty, the path's mean and full
+#: (both timed)
 MLA_FILLS = (0, 192, MAX_LEN - 1)
+MLA_TIMED = (192, MAX_LEN - 1)
+#: one batch of rows at different fills: empty, the first chunk's last
+#: position, the second's first, the ends and starts of shares of an 8-rank
+#: split (L 31 and 32: shares of 16; 127, 128: 16 and 32), full
+MLA_MIXED = (0, 15, 16, 31, 32, 127, 128, MAX_LEN - 1)
 
 
 def fp8_linear(gen, k: int, n: int, std: float = 0.02):
@@ -1936,16 +1942,17 @@ def sdpa_backends(*args, **kw) -> list:
     return ok
 
 
-def check_mla_decode(gen, L: int, timed: bool) -> dict:
+def check_mla_decode(gen, fill, timed: bool) -> dict:
     """K8 at the path-E shape (B 8, H 16, r 512, rope 64 padded to 128,
-    S 512), every row at fill length ``L``, stale rows past it NaN: each
-    (row, head) held to 2e-2 of its own largest |value|, the written rows
-    and the untouched ones exactly."""
+    S 512), every row at fill length ``fill`` (or row b at ``fill[b]``),
+    stale rows past it NaN: each (row, head) held to 2e-2 of its own
+    largest |value|, the written rows and the untouched ones exactly."""
     from quantizers_tpu_torch.ops import kernels as K
 
     B, H, S = BATCH, MLA_GEOMETRY["num_heads"], MAX_LEN
     r, dr, dp = MLA_GEOMETRY["kv_lora_rank"], MLA_GEOMETRY["qk_rope_head_dim"], 128
     dev = gen.device
+    fills = [fill] * B if isinstance(fill, int) else list(fill)
 
     def rnd(*shape):
         return torch.randn(shape, device=dev, generator=gen).bfloat16()
@@ -1953,14 +1960,15 @@ def check_mla_decode(gen, L: int, timed: bool) -> dict:
     q_abs, new_c = rnd(B, H, r), rnd(B, r)
     q_pe, new_p = F.pad(rnd(B, H, dr), (0, dp - dr)), F.pad(rnd(B, dr), (0, dp - dr))
     cc, cp = rnd(B, 1, S, r), F.pad(rnd(B, 1, S, dr), (0, dp - dr))
-    cc[:, :, L + 1:], cp[:, :, L + 1:] = float("nan"), float("nan")
-    lengths = torch.full((B,), L, dtype=torch.int32, device=dev)
+    lengths = torch.tensor(fills, dtype=torch.int32, device=dev)
+    stale = (torch.arange(S, device=dev)[None, :] > lengths[:, None])[:, None, :, None]
+    cc, cp = cc.masked_fill(stale, float("nan")), cp.masked_fill(stale, float("nan"))
     sm = 1.0 / math.sqrt(MLA_GEOMETRY["qk_nope_head_dim"] + dr)
     c1, p1, c2, p2 = cc.clone(), cp.clone(), cc.clone(), cp.clone()
     got = K.mla_decode_attention(q_abs, q_pe, new_c, new_p, c1, p1, lengths, sm)
     ref = K.mla_decode_attention_plain(q_abs, q_pe, new_c, new_p, c2, p2, lengths, sm)
     torch.cuda.synchronize()
-    label = f"L={L}"
+    label = f"L={fill}" if isinstance(fill, int) else "L=" + ",".join(map(str, fills))
     check(bool(torch.isfinite(got).all()), f"mla_decode_attention {label}: non-finite output")
     errs = (got.float() - ref.float()).abs().amax(dim=2)
     tols = RTOL["mla_decode_attention"] * ref.float().abs().amax(dim=2)
@@ -1971,16 +1979,23 @@ def check_mla_decode(gen, L: int, timed: bool) -> dict:
           f"mla_decode_attention {label}: b={b} h={h}: max |err| {err:.4g} > tol {tol:.4g}")
     same = lambda a, b: bool(torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0)))  # noqa: E731
     check(same(c1, c2) and same(p1, p2), f"mla_decode_attention {label}: cache rows differ")
-    check(torch.equal(c1[:, 0, L], new_c) and torch.equal(p1[:, 0, L], new_p)
-          and same(c1[:, :, :L], cc[:, :, :L]) and same(c1[:, :, L + 1:], cc[:, :, L + 1:]),
+    rows = torch.arange(B, device=dev)
+    written = torch.zeros_like(stale)
+    written[rows, 0, lengths.long()] = True
+    check(torch.equal(c1[rows, 0, lengths.long()], new_c)
+          and torch.equal(p1[rows, 0, lengths.long()], new_p)
+          and same(c1.masked_fill(written, 0.0), cc.masked_fill(written, 0.0))
+          and same(p1.masked_fill(written, 0.0), cp.masked_fill(written, 0.0)),
           f"mla_decode_attention {label}: the new row is not at L alone")
     check(torch.equal(K.mla_decode_attention(q_abs, q_pe, new_c, new_p, cc.clone(), cp.clone(),
                                              lengths, sm), got),
           f"mla_decode_attention {label}: differs from run to run")
-    row = {"B": B, "H": H, "r": r, "rope_pad": dp, "S": S, "L": L, "max_abs_err": err,
+    row = {"B": B, "H": H, "r": r, "rope_pad": dp, "S": S, "L": fill, "max_abs_err": err,
            "tol": tol, "worst_at": f"b={b} h={h}", "worst_ratio": ratio.max().item()}
     if not timed:
         return row
+    L = fills[0]
+    check(fills == [L] * B, "mla_decode_attention: a timed check takes one fill for every row")
     cc, cp = cc.nan_to_num(0.0), cp.nan_to_num(0.0)
     cache_bytes = (cc.numel() + cp.numel()) * 2
     caches = rotating([(cc, cp)] + [(cc.clone(), cp.clone())
@@ -2026,7 +2041,8 @@ def check_mla_decode(gen, L: int, timed: bool) -> dict:
 def slice5_kernels(gen, detail) -> dict:
     """K9 at the four path-E decode shapes (m 8 timed, m 128 checked, and
     timed for gate|up), q_proj at the no-cache window's m 512 (timed) and a
-    ragged shape; K8 at three fill lengths (L 192 timed)."""
+    ragged shape; K8 at three fill lengths (L 192 and 511 timed) and one
+    batch of mixed fills."""
     rows = {"fp8_matmul": {}, "mla_decode_attention": {}}
     for label, (k, n) in FP8_SHAPES.items():
         rows["fp8_matmul"][f"{label}@m8"] = check_fp8(gen, k, n, 8, timed=True)
@@ -2035,7 +2051,8 @@ def slice5_kernels(gen, detail) -> dict:
     rows["fp8_matmul"]["q_proj@m512"] = check_fp8(gen, *FP8_SHAPES["q_proj"], 512, timed=True)
     rows["fp8_matmul"]["ragged@m3"] = check_fp8(gen, 384, 256, 3, timed=False)
     for L in MLA_FILLS:
-        rows["mla_decode_attention"][f"L{L}"] = check_mla_decode(gen, L, timed=L == 192)
+        rows["mla_decode_attention"][f"L{L}"] = check_mla_decode(gen, L, timed=L in MLA_TIMED)
+    rows["mla_decode_attention"]["mixed"] = check_mla_decode(gen, MLA_MIXED, timed=False)
     for key in rows:
         for label, r in rows[key].items():
             log(f"[kernels] {key} {label}: {r}")
@@ -2443,6 +2460,9 @@ def main() -> int:
          **worst(s5["mla_decode_attention"]),
          **{key: s5["mla_decode_attention"]["L192"][key]
             for key in ("ms", "dev_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                        "library_dev_ms")},
+         **{f"{key}_L{MAX_LEN - 1}": s5["mla_decode_attention"][f"L{MAX_LEN - 1}"][key]
+            for key in ("ms", "dev_ms", "plain_ms", "bound_ms", "library_ms",
                         "library_dev_ms")}},
     ]
     check(all(k["launches"] > 0 for k in kernels_line), "a kernel never launched on its path")

@@ -906,15 +906,34 @@ def test_fp8_kernel_reads_out_every_weight_exactly(gen):
         assert torch.equal(got, ref), (r0, (got != ref).nonzero()[:4].tolist())
 
 
-@pytest.mark.parametrize("B,H,r,dp,S", [(8, 16, 512, 128, 512), (3, 4, 128, 256, 64)])
-def test_mla_decode_attention_matches_plain(gen, B, H, r, dp, S):
+#: (B, H, r, dp, S, fills): path E's shape and a narrow one with random
+#: fills (row 0 empty, row 1 full); H 20 (a full and a padded tile of 16
+#: heads); H 128 (8 tiles); the widest latent and rope at the most slots,
+#: a row at L 8191; one batch of mixed fills: empty, the first chunk's
+#: last position, the second's first, the ends and starts of shares of an
+#: 8-rank split (L 31, 32: shares of 16; 127, 128: 16 and 32), full
+MLA_CASES = [
+    pytest.param(8, 16, 512, 128, 512, None, id="8-16-512-128-512"),
+    pytest.param(3, 4, 128, 256, 64, None, id="3-4-128-256-64"),
+    pytest.param(4, 20, 512, 128, 512, None, id="4-20-512-128-512"),
+    pytest.param(2, 128, 512, 128, 512, None, id="2-128-512-128-512"),
+    pytest.param(2, 16, 1024, 256, 8192, None, id="2-16-1024-256-8192"),
+    pytest.param(8, 16, 512, 128, 512, (0, 15, 16, 31, 32, 127, 128, 511), id="mixed-fills"),
+]
+
+
+@pytest.mark.parametrize("B,H,r,dp,S,fills", MLA_CASES)
+def test_mla_decode_attention_matches_plain(gen, B, H, r, dp, S, fills):
     def rnd(*shape):
         return torch.randn(shape, device="cuda", generator=gen).bfloat16()
 
     qa, qp, nc, npe = rnd(B, H, r), rnd(B, H, dp), rnd(B, r), rnd(B, dp)
     cc, cp = rnd(B, 1, S, r), rnd(B, 1, S, dp)
-    lengths = torch.randint(0, S + 8, (B,), dtype=torch.int32, device="cuda", generator=gen)
-    lengths[0], lengths[1] = 0, S - 1
+    if fills is None:
+        lengths = torch.randint(0, S + 8, (B,), dtype=torch.int32, device="cuda", generator=gen)
+        lengths[0], lengths[1] = 0, S - 1
+    else:
+        lengths = torch.tensor(fills, dtype=torch.int32, device="cuda")
     # stale rows past each length hold NaN: they must never reach a product
     L = lengths.long().clamp(max=S - 1)
     stale = torch.arange(S, device="cuda")[None, :] > L[:, None]
@@ -936,6 +955,49 @@ def test_mla_decode_attention_matches_plain(gen, B, H, r, dp, S):
     assert torch.equal(c1[rows, 0, L], nc) and torch.equal(p1[rows, 0, L], npe)
     c3, p3 = cc.clone(), cp.clone()
     assert torch.equal(K.mla_decode_attention(qa, qp, nc, npe, c3, p3, lengths, sm), got)
+
+
+def test_mla_decode_attention_one_hot_readout(gen):
+    """p exactly one-hot reads out one latent row bit for bit. The first S
+    columns of every valid latent row (and of new_c) are one-hot, row s at
+    column s, the rest random; q_abs[b, h] = 4096 e_j, q_pe = 0: position
+    j scores 4096 * sm_scale (about 296) and every other 0, so exp gives
+    exactly 0 off j in f32 and ctx_lat[b, h] = C[j] (new_c at j = L). The
+    heads take j at the first and last position of every 16-row chunk
+    (every rank's share starts and ends at one, whatever the split) and at
+    L; stale rows hold NaN."""
+    B, H, r, dp, S = 4, 16, 512, 128, 256
+    fills = (S - 1, S - 1, 100, 0)
+    picks = []
+    for L in fills:
+        ends = sorted({p for k in range(0, L + 1, 16) for p in (k, min(k + 15, L))} | {L})
+        picks.append(ends)
+    # rows 0 and 1 share the 32 ends of L 255's chunks; row 2 pads with L
+    picks = [picks[0][:16], picks[0][16:], (picks[2] + [100] * 16)[:16], [0] * 16]
+    assert all(len(js) == H for js in picks) and 255 in picks[1]
+    lengths = torch.tensor(fills, dtype=torch.int32, device="cuda")
+    eye = torch.eye(S, device="cuda").bfloat16()
+    cc = torch.randn((B, 1, S, r), device="cuda", generator=gen).bfloat16()
+    cc[:, 0, :, :S] = eye
+    cp = torch.randn((B, 1, S, dp), device="cuda", generator=gen).bfloat16()
+    nc = torch.randn((B, r), device="cuda", generator=gen).bfloat16()
+    nc[:, :S] = eye[lengths.long()]
+    npe = torch.randn((B, dp), device="cuda", generator=gen).bfloat16()
+    stale = (torch.arange(S, device="cuda")[None, :] > lengths[:, None])[:, None, :, None]
+    cc, cp = cc.masked_fill(stale, float("nan")), cp.masked_fill(stale, float("nan"))
+    j = torch.tensor(picks, device="cuda")
+    qa = torch.zeros((B, H, r), dtype=torch.bfloat16, device="cuda")
+    qa.scatter_(2, j[:, :, None], 4096.0)
+    qp = torch.zeros((B, H, dp), dtype=torch.bfloat16, device="cuda")
+    sm = 1 / math.sqrt(192)
+    got = K.mla_decode_attention(qa, qp, nc, npe, cc.clone(), cp.clone(), lengths, sm)
+    ref = K.mla_decode_attention_plain(qa, qp, nc, npe, cc.clone(), cp.clone(), lengths, sm)
+    rows = torch.arange(B, device="cuda")[:, None]
+    want = torch.where((j == lengths[:, None].long())[:, :, None], nc[:, None, :],
+                       cc[rows, 0, j])
+    torch.cuda.synchronize()
+    assert torch.equal(ref, want)
+    assert torch.equal(got, want), (got != want).nonzero()[:4].tolist()
 
 
 @pytest.mark.parametrize("bits,strategy,group", [(4, "group", 32), (8, "channel", None),
