@@ -48,10 +48,39 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
 14. card against CPU, path E at 2 layers, full width: logits and greedy
     tokens with the bf16 latent cache and with the fp8 one, and one
     no-cache perplexity window (the flash kernel at head dim 256);
-15. one JSON line of per-kernel numbers, then the card's nvidia-smi line,
-    then the final ``{"ok": true, ...}`` line.
+16. path F (slice 6 and the RTN oneshot engine): a full-width, full-depth
+    Qwen3-4B bf16 HF checkpoint (random weights from a seeded generator)
+    quantized to NVFP4 by ``cli/do_oneshot.main --config`` on the card
+    (``configs/recipes/recipe_dense_nvfp4.yaml``, the fixture calibration
+    set ``configs/calibration_sets/test-calibrate_quick.yaml``), with each
+    stage's seconds, the peak device memory, 252 records and the flash
+    kernel's launches in the calibration forwards; then ``cli/serve.main``
+    on the checkpoint it wrote (the NVFP4 matmul, decode attention, the
+    int8 head);
+17. path G: ``configs/recipes/recipe_moe_rtn_nvfp4.yaml`` on Qwen3-30B-A3B
+    at full width and 4 layers, 3 x 128 expert records a layer, the router
+    and attention left bf16, then ``cli/serve.main`` on it (the w8pc slot
+    FFN);
+18. card against CPU: ``oneshot`` on both devices over the same
+    calibration batches, with ``configs/recipes/recipe_fp8_kv8.yaml`` and
+    ``recipe_dense_nvfp4.yaml`` on the first 2 layers of path F's model and
+    ``recipe_moe_rtn_nvfp4.yaml`` on the first layer of path G's (codes,
+    scales, NVFP4's global scales, ``k_scale`` / ``v_scale``, the quantized
+    model's logits), and the ``mse`` observer's scales;
+15. after phase 18: one JSON line of per-kernel numbers, then the card's
+    nvidia-smi line, then the final ``{"ok": true, ...}`` line.
 
 Longer per-shape numbers go to ``chiprun_out/chip_smoke_detail.json``.
+
+    python3 chip_smoke.py --calibration-scale
+
+runs instead the calibration of paths F and G at the size of the
+repository's real calibration set (``calibration_scale``): its sample count
+and ``max_seq_length`` read from
+``configs/calibration_sets/calibrate_software_engineer.yaml``, every row
+seeded random ids at that length; stage seconds, the peak device memory and
+the flash kernel's launches go to
+``chiprun_out/chip_smoke_calibration_scale.json``.
 """
 
 from __future__ import annotations
@@ -62,7 +91,9 @@ import io
 import json
 import logging
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2295,6 +2326,503 @@ def card_vs_cpu_mla(detail, text: str, devices=("cuda", "cpu")):
 
 
 # ---------------------------------------------------------------------------
+# slice 6 and the RTN oneshot engine: paths F and G, from a bf16 checkpoint
+# to a served compressed one, and the engine card against CPU (phases 16-18)
+# ---------------------------------------------------------------------------
+
+#: the calibration set of paths F and G and phase 18: the repository's mix of
+#: its own fixture datasets (tests/fixtures), read through HF datasets
+QUICK_SET = ROOT / "configs" / "calibration_sets" / "test-calibrate_quick.yaml"
+#: path G's depth: Qwen3-30B-A3B at full width, 4 of its 48 layers (the cut
+#: bounds the bf16 checkpoint's write and load time)
+G_LAYERS = 4
+#: the seed of path F's bf16 weights (phase 18 takes its first 2 layers)
+F_SEED = 16
+#: phase 18, card against CPU: codes (E4M3 or E2M1) and NVFP4's group
+#: scales equal but for at most this share one grid step apart (a
+#: division's result on a rounding tie), other scales and NVFP4's global
+#: scales within SCALE_RTOL (both devices divide exactly), the KV-cache
+#: scales within KV_SCALE_RTOL (their absmax is a bf16 activation, which the
+#: two devices may round an ulp apart, 2^-7 at most)
+CODE_TIE_SHARE, SCALE_RTOL, KV_SCALE_RTOL = 1e-4, 1e-6, 1e-2
+#: the mse observer on both devices: a cell may pick another clip ratio only
+#: where the CPU's errors of the two picks lie within this fraction (f32 sums
+#: in other orders)
+MSE_TIE_RTOL = 1e-5
+
+
+def write_run_config(path: Path, model_dir: Path, recipe: str) -> Path:
+    path.write_text(f"model:\n  name: {model_dir}\nquantization:\n"
+                    f"  recipe: {ROOT}/configs/recipes/{recipe}.yaml\n"
+                    f"calibration_set: {QUICK_SET}\n")
+    return path
+
+
+def write_bf16_model(spec, seed: int, out_dir: Path, first_layers: tuple = None,
+                     device: str = "cuda") -> dict:
+    """A plain HF bf16 checkpoint of ``init_params(spec, seed)`` (random
+    weights made on the card), written by the port's ``save_hf_model``;
+    ``first_layers`` (a directory, a count n): also a checkpoint of its
+    first n layers."""
+    from quantizers_tpu_torch.models import init_params
+    from quantizers_tpu_torch.models.loader import save_hf_model
+
+    t0 = time.perf_counter()
+    params = init_params(spec, seed=seed, device=device)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    save_hf_model(spec, params, out_dir)
+    t_write = time.perf_counter() - t0
+    if first_layers is not None:
+        cut, n = first_layers
+        save_hf_model(dataclasses.replace(spec, num_layers=n),
+                      dict(params, layers=params["layers"][:n]), cut)
+    del params
+    torch.cuda.empty_cache()
+    return {"layers": spec.num_layers, "init_s": t_init, "write_s": t_write,
+            "bytes": sum(f.stat().st_size for f in out_dir.iterdir())}
+
+
+def oneshot_cli(label: str, run_cfg: Path, out_dir: Path, cache_dir: Path, card: str) -> dict:
+    """``cli/do_oneshot.main --config`` on the card, as a user runs it, with
+    every launch count set to 0 just before it and the peak device memory
+    reset: its stage seconds (from its log), records, launches and peak.
+    ``card`` is the nvidia-smi line, logged beside the numbers."""
+    from quantizers_tpu_torch.cli import do_oneshot
+    from quantizers_tpu_torch.ops import kernels as K
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.chdir(ROOT):  # the set's dataset paths are the repository's
+        rc, _, rec = run_cli(do_oneshot.main, ["--config", str(run_cfg), "--output",
+                                               str(out_dir), "--cache-dir", str(cache_dir)],
+                             "quantizers_tpu_torch.do_oneshot")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, peak = K.launch_counts(), torch.cuda.max_memory_allocated()
+    check(rc == 0, f"{label}: do_oneshot returned {rc}")
+    n_samples, n_batches, tok_s = rec.args("tokenized")
+    capture_s, solve_s, propagate_s = rec.args("oneshot stages")
+    res = {"calibration_set_s": rec.args("calibration set")[0],
+           "load_s": rec.args("model loaded")[0], "tokenize_s": tok_s,
+           "samples": n_samples, "batches": n_batches,
+           "oneshot_s": rec.args("oneshot done")[0], "capture_s": capture_s,
+           "solve_s": solve_s, "propagate_s": propagate_s,
+           "save_s": rec.args("saved compressed model")[1],
+           "cli_total_s": rec.args("total wall clock")[0], "wall_s": wall,
+           "records": rec.args("oneshot done")[1], "peak_memory_gb": peak / 1e9,
+           "launches": counts,
+           "output_bytes": sum(f.stat().st_size for f in out_dir.iterdir())}
+    log(f"[{label}] do_oneshot ({card}): {res}")
+    return res
+
+
+def serve_output(label: str, ckpt: Path, text: str, served: tuple, card: str) -> dict:
+    """``cli/serve.main`` on a checkpoint that do_oneshot wrote: 8 prompts,
+    16 new tokens each, the int8 head. ``served`` lists groups of kernels:
+    at least one kernel of each group must launch, and none outside them."""
+    from quantizers_tpu_torch.cli import serve
+    from quantizers_tpu_torch.ops import kernels as K
+
+    words = text.split()
+    argv = [str(ckpt), "--max-new-tokens", "16", "--max-batch", "8", "--max-len", "512",
+            "--head-bits", "8"]
+    for i in range(8):
+        argv += ["--prompt", " ".join(words[i * 7: i * 7 + 3 + 4 * i])]
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc, out, rec = run_cli(serve.main, argv, "quantizers_tpu_torch.serve")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = K.launch_counts()
+    rids = re.findall(r"^(\d+)\t", out, re.M)
+    check(rc == 0 and rids == [str(i) for i in range(8)],
+          f"{label} serve: want one line per prompt, got rids {rids}")
+    allowed = {k for group in served for k in group}
+    check(all(any(counts[k] > 0 for k in group) for group in served)
+          and counts == expect(**{k: counts[k] for k in allowed}),
+          f"{label} serve: one kernel of each of {served} must launch, and nothing else: "
+          f"{counts}")
+    n_tok, _, gen_s = rec.args("generated")[:3]
+    res = {"prompts": 8, "tokens": n_tok, "load_s": rec.args("loaded")[1],
+           "generate_s": gen_s, "tok_s": n_tok / gen_s, "total_s": dt, "launches": counts}
+    log(f"[{label} serve] ({card}) {res}")
+    return res
+
+
+def oneshot_dense_phase(detail, tmp: Path) -> Path:
+    """Path F: the full-depth Qwen3-4B bf16 checkpoint through do_oneshot
+    with RTN NVFP4 on every linear, then served. Returns the 2-layer bf16
+    checkpoint of the same weights (phase 18's)."""
+    from quantizers_tpu_torch.models import ModelSpec
+
+    card = detail["device"]
+    spec = ModelSpec(**GEOMETRY)
+    bf16, two = tmp / "qwen3_4b_bf16", tmp / "qwen3_4b_bf16_2layers"
+    info = write_bf16_model(spec, F_SEED, bf16, first_layers=(two, 2))
+    log(f"[path F] bf16 checkpoint ({card}): {info}")
+    out = tmp / "qwen3_4b_nvfp4"
+    run = oneshot_cli("path F", write_run_config(tmp / "run_F.yaml", bf16, "recipe_dense_nvfp4"),
+                      out, tmp / "calibration_cache", card)
+    check(run["records"] == spec.num_layers * 7,
+          f"path F: {run['records']} records, want {spec.num_layers * 7}")
+    check(run["launches"]["flash_attention"] > 0,
+          f"path F: the flash kernel never ran in calibration: {run['launches']}")
+    qcfg = json.loads((out / "config.json").read_text())["quantization_config"]
+    w = qcfg["config_groups"]["group_0"]["weights"]
+    check((w["num_bits"], w["type"], w["strategy"]) == (4, "float", "tensor_group"),
+          f"path F: the checkpoint's scheme is {w}")
+    shutil.rmtree(bf16)
+    torch.cuda.empty_cache()
+    served = serve_output("path F", out, synthetic_text(),
+                          (("decode_attention",), ("w8_matmul",),
+                           ("nvfp4_matmul", "nvfp4_i8_matmul")), card)
+    detail["path_F"] = {"device": card, "checkpoint": info, "oneshot": run,
+                        "serve": served}
+    shutil.rmtree(out)
+    return two
+
+
+def oneshot_moe_phase(detail, tmp: Path) -> Path:
+    """Path G: the reference's headline recipe (experts-only NVFP4) on
+    Qwen3-30B-A3B at full width and G_LAYERS layers, then served (w8pc
+    experts, the fused slot FFN at decode). Returns the 1-layer bf16
+    checkpoint of the same weights (phase 18's)."""
+    from quantizers_tpu_torch.formats.checkpoint import CompressedModelReader
+    from quantizers_tpu_torch.models import ModelSpec
+
+    card = detail["device"]
+    spec = ModelSpec(**dict(MOE_GEOMETRY, num_layers=G_LAYERS))
+    bf16, out = tmp / "qwen3_30b_a3b_bf16", tmp / "qwen3_30b_a3b_nvfp4"
+    one = tmp / "qwen3_30b_a3b_bf16_1layer"
+    info = write_bf16_model(spec, F_SEED + 1, bf16, first_layers=(one, 1))
+    log(f"[path G] bf16 checkpoint, {G_LAYERS} layers ({card}): {info}")
+    run = oneshot_cli("path G", write_run_config(tmp / "run_G.yaml", bf16,
+                                                 "recipe_moe_rtn_nvfp4"),
+                      out, tmp / "calibration_cache", card)
+    E = spec.num_experts
+    check(run["records"] == G_LAYERS * 3 * E,
+          f"path G: {run['records']} records, want {G_LAYERS * 3 * E}")
+    with CompressedModelReader(out) as r:
+        quant = r.quantized_modules()
+        per_layer = [sum(p.startswith(f"model.layers.{i}.mlp.experts.") for p in quant)
+                     for i in range(G_LAYERS)]
+        kept = {n: r.load_plain(f"model.layers.{i}.{n}.weight").dtype
+                for i in range(G_LAYERS) for n in ("mlp.gate", "self_attn.q_proj",
+                                                   "self_attn.o_proj")}
+    check(per_layer == [3 * E] * G_LAYERS and len(quant) == G_LAYERS * 3 * E,
+          f"path G: expert records per layer {per_layer}, {len(quant)} in all")
+    check(set(kept.values()) == {torch.bfloat16},
+          f"path G: the router and attention must stay bf16: {set(kept.values())}")
+    shutil.rmtree(bf16)
+    torch.cuda.empty_cache()
+    served = serve_output("path G", out, synthetic_text(),
+                          (("decode_attention",), ("w8_matmul",), ("moe_slot_gu_ffn",)), card)
+    detail["path_G"] = {"device": card, "layers": G_LAYERS, "checkpoint": info,
+                        "oneshot": run, "expert_records_per_layer": per_layer, "serve": served}
+    shutil.rmtree(out)
+    return one
+
+
+def _code_steps(ia: torch.Tensor, ib: torch.Tensor, sign: int) -> torch.Tensor:
+    """How many grid steps apart two tensors of sign-magnitude codes are
+    (``sign``: the sign bit)."""
+    ia, ib = ia.int(), ib.int()
+    same_sign = (ia & sign) == (ib & sign)
+    return torch.where(same_sign, (ia - ib).abs(), (ia & (sign - 1)) + (ib & (sign - 1)))
+
+
+def _fp8_code_steps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """How many E4M3 steps apart two tensors of E4M3 grid values are."""
+    return _code_steps(a.to(torch.float8_e4m3fn).view(torch.uint8),
+                       b.to(torch.float8_e4m3fn).view(torch.uint8), 0x80)
+
+
+def _fp4_code_steps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """How many E2M1 steps apart two tensors of E2M1 grid values are."""
+    from quantizers_tpu_torch.formats.compressed_tensors import fp4_encode
+
+    return _code_steps(fp4_encode(a), fp4_encode(b), 0x8)
+
+
+def mse_on_both(w: dict, devices) -> dict:
+    """The mse observer's scales for one weight on each device: a cell may
+    pick another clip ratio only where the CPU's errors of the two picks
+    are a near-tie."""
+    from quantizers_tpu_torch.core import numerics as tn
+    from quantizers_tpu_torch.core.scheme import QuantizationArgs
+
+    args = QuantizationArgs.from_dict(dict(num_bits=4, type="int", symmetric=True,
+                                           strategy="group", group_size=32, observer="mse"))
+    scales = {d: tn.quantize(w[d], args).scale.float().cpu() for d in devices}
+    got, ref = (scales[d] for d in devices)
+    differ = got != ref
+    wc = w[devices[1]].float().cpu()
+
+    def cell_err(scale):
+        d = tn.dequantize(tn.quantize(wc, args, scale=scale), args) - wc
+        return tn._reduce_err_to_scale(d * d, args)
+
+    e_got, e_ref = cell_err(got), cell_err(ref)
+    worst = ((e_got - e_ref) / e_ref.clamp(min=1e-30))[differ].max().item() if differ.any() else 0.0
+    res = {"cells": differ.numel(), "cells_differing": int(differ.sum()),
+           "worst_err_excess": worst, "tie_rtol": MSE_TIE_RTOL}
+    check(worst <= MSE_TIE_RTOL, f"card vs CPU mse: a cell's pick is worse by {worst:.3g}")
+    return res
+
+
+def engine_on_both(ckpt: Path, recipe_name: str, batches, ids, devices) -> dict:
+    """``oneshot`` of one repository recipe over one bf16 checkpoint on each
+    device, the CPU (``devices[1]``) first: per device its records (on the
+    host), extra tensors, the quantized model's logits on ``ids``, the
+    router decisions of that forward (the card takes the CPU's, as in
+    ``card_vs_cpu_moe``), the flash launches of calibration, the first
+    q_proj weight as loaded, and the seconds."""
+    from quantizers_tpu_torch.models import forward, load_hf_model
+    from quantizers_tpu_torch.oneshot import oneshot
+    from quantizers_tpu_torch.ops import kernels as K
+    from quantizers_tpu_torch.recipes import parse_recipe
+
+    recipe = parse_recipe(str(ROOT / "configs" / "recipes" / f"{recipe_name}.yaml"))
+    out = {}
+    for dev in reversed(devices):
+        t0 = time.perf_counter()
+        spec, params = load_hf_model(ckpt, device=dev)
+        w = params["layers"][0]["q_proj"].dequantize(torch.float32).t().contiguous()
+        K.reset_launch_counts()
+        r = oneshot(spec, params, recipe, batches, device=dev)
+        flash = K.launch_counts()["flash_attention"]
+        replay = out[devices[1]]["routes"] if dev != devices[1] else None
+        with torch.no_grad(), RouteRecorder(replay) as rec:
+            logits = forward(r.params, spec, torch.as_tensor(ids, device=dev).long()
+                             )[0].float().cpu()
+        out[dev] = {"records": {k: cp.qt for k, cp in r.records.items()},
+                    "extra": r.extra_tensors, "logits": logits, "routes": rec.calls,
+                    "flash": flash, "w": w, "s": time.perf_counter() - t0}
+        log(f"[card-vs-cpu oneshot] {recipe_name} on {dev}: {out[dev]['s']:.1f} s")
+        del params, r
+    return out
+
+
+def routes_agree(label: str, got: list, ref: list) -> dict:
+    """Each of the card's router decisions against the CPU's: a token whose
+    top-k differs must be a near-tie on the CPU (ROUTE_GAP_RTOL)."""
+    check(len(got) == len(ref), f"{label}: router calls {len(got)} / {len(ref)}")
+    flips = near = decisions = 0
+    for (ti, _, _), (ri, pk, pk1) in zip(got, ref):
+        tie = (pk - pk1) <= ROUTE_GAP_RTOL * pk
+        differ = (ti.sort(-1).values != ri.sort(-1).values).any(-1)
+        decisions += ri.shape[0]
+        flips += int(differ.sum())
+        near += int(tie.sum())
+        check(bool((~differ | tie).all()),
+              f"{label}: a router choice differs where the CPU's gap is no near-tie")
+    return {"router_decisions": decisions, "router_flips": flips, "router_near_ties": near,
+            "router_gap_rtol": ROUTE_GAP_RTOL}
+
+
+def records_agree(label: str, got: dict, ref: dict, n_records: int) -> dict:
+    """The card's records against the CPU's: codes (and the group scales of
+    NVFP4, which lie on the E4M3 grid) equal but for a share of at most
+    CODE_TIE_SHARE one step apart; every other scale and NVFP4's global
+    scales within SCALE_RTOL."""
+    check(sorted(got) == sorted(ref) and len(got) == n_records,
+          f"{label}: records {len(got)} / {len(ref)}, want {n_records}")
+    tally = {"codes": [0, 0, 0], "grid_scales": [0, 0, 0]}  # cells, differing, max steps
+    scale_err = 0.0
+
+    def count(key, steps):
+        t = tally[key]
+        t[0] += steps.numel()
+        t[1] += int((steps > 0).sum())
+        t[2] = max(t[2], int(steps.max()))
+
+    for k, qt in got.items():
+        rq = ref[k]
+        nvfp4 = rq.global_scale is not None
+        count("codes", (_fp4_code_steps if nvfp4 else _fp8_code_steps)(qt.values, rq.values))
+        if nvfp4:
+            count("grid_scales", _fp8_code_steps(qt.scale.float(), rq.scale.float()))
+            pairs = [(qt.global_scale, rq.global_scale)]
+        else:
+            pairs = [(qt.scale, rq.scale)]
+        for a, b in pairs:
+            a, b = a.float(), b.float()
+            scale_err = max(scale_err, ((a - b).abs() / b.abs()).max().item())
+    row = {"records": len(got), "code_share_limit": CODE_TIE_SHARE, "max_scale_rel_err": scale_err,
+           "scale_rtol": SCALE_RTOL}
+    for key, (cells, differing, steps) in tally.items():
+        if cells:
+            row[key] = {"cells": cells, "differing": differing, "max_steps": steps}
+            check(differing <= CODE_TIE_SHARE * cells and steps <= 1,
+                  f"{label}: {differing} of {cells} {key} differ, up to {steps} steps")
+    check(scale_err <= SCALE_RTOL, f"{label}: scale error {scale_err:.3g}")
+    return row
+
+
+def card_vs_cpu_oneshot(detail, tmp: Path, dense: Path, moe: Path,
+                        devices=("cuda", "cpu")) -> None:
+    """The engine on both devices over the same calibration batches:
+    recipe_fp8_kv8 (FP8 channel weights, the FP8 KV cache: its scales need
+    the capture pass) and recipe_dense_nvfp4 on the 2-layer dense
+    checkpoint, recipe_moe_rtn_nvfp4 (experts only) on the 1-layer MoE
+    one; then the mse observer's picks on both devices."""
+    from quantizers_tpu_torch.data import ByteTokenizer, CalibrationSet, CalibrationSetConfig
+    from quantizers_tpu_torch.oneshot import make_batches
+
+    cfg = CalibrationSetConfig.from_file(str(QUICK_SET))
+    cache = str(tmp / "calibration_cache")
+    with contextlib.chdir(ROOT):
+        calib = (CalibrationSet.from_cache(cfg, cache) if CalibrationSet.is_cached(cfg, cache)
+                 else CalibrationSet.from_config(cfg, cache))
+        rows = [r["input_ids"] for r in calib.get_tokenized(ByteTokenizer())]
+    batches = make_batches(rows[:8], max_seq_length=256, batch_size=4)[:2]
+    ids = batches[-1][0][:1]
+    row = {"device": detail["device"], "batches": [list(b[0].shape) for b in batches]}
+    detail["card_vs_cpu_oneshot"] = row
+    # (recipe, checkpoint, its layers, records a layer, the batches: the
+    # MoE slice's CPU run sends every token through all 128 experts, so it
+    # takes one batch)
+    cases = (("recipe_fp8_kv8", dense, 2, 7, batches),
+             ("recipe_dense_nvfp4", dense, 2, 7, batches),
+             ("recipe_moe_rtn_nvfp4", moe, 1, 3 * MOE_GEOMETRY["num_experts"], batches[:1]))
+    w = None
+    for name, ckpt, layers, per_layer, bs in cases:
+        label = f"card vs CPU oneshot {name}"
+        res = engine_on_both(ckpt, name, bs, ids, devices)
+        got, ref = (res[d] for d in devices)
+        r = {"layers": layers, "seconds": {d: res[d]["s"] for d in devices},
+             "flash_launches_card": got["flash"],
+             **records_agree(label, got["records"], ref["records"], layers * per_layer)}
+        check(got["flash"] > 0, f"{label}: the flash kernel never ran in calibration")
+        if name == "recipe_fp8_kv8":
+            ec, er = got["extra"], ref["extra"]
+            check(sorted(ec) == sorted(er) and len(er) == 4,
+                  f"{label}: KV scales {sorted(ec)} / {sorted(er)}")
+            kv_err = max(abs(ec[k].item() - er[k].item()) / er[k].item() for k in er)
+            r.update(kv_scales={k: [ec[k].item(), er[k].item()] for k in sorted(er)},
+                     max_kv_scale_rel_err=kv_err, kv_scale_rtol=KV_SCALE_RTOL)
+            check(kv_err <= KV_SCALE_RTOL, f"{label}: KV scale error {kv_err:.3g}")
+            w = {d: res[d]["w"] for d in devices}
+        r.update(routes_agree(label, got["routes"], ref["routes"]))
+        r["logits"] = logits_agree(label, got["logits"], ref["logits"])
+        row[name] = r
+        log(f"[{label}] {r}")
+        del res, got, ref
+    row["mse_observer"] = mse_on_both(w, devices)
+    log(f"[card-vs-cpu oneshot] mse observer {row['mse_observer']}")
+
+
+#: the repository's real calibration set, whose hub datasets are not in the
+#: repository: ``calibration_scale`` takes its sample count and length cap
+REAL_SET = ROOT / "configs" / "calibration_sets" / "calibrate_software_engineer.yaml"
+#: the seed of ``calibration_scale``'s token ids
+SCALE_SEED = 18
+
+
+def calibration_scale(detail) -> None:
+    """Paths F and G's calibration at the real set's size: as many rows as
+    the set's ``num_samples`` add up to, each ``max_seq_length`` seeded
+    random ids long (rows longer than the cap are cut to it, so this is
+    the most time and memory the set can take), in ``do_oneshot``'s
+    batches of 4, through the functions ``cli/do_oneshot.main`` calls
+    (load, ``oneshot`` in device mode, ``save_result``). Per path: each
+    stage's seconds, the peak device memory, the records, the flash
+    kernel's launches; and for the 48-layer Qwen3-30B-A3B the bytes the
+    two offload modes would hold (shape arithmetic)."""
+    from quantizers_tpu_torch.cli.do_oneshot import save_result
+    from quantizers_tpu_torch.data import CalibrationSetConfig
+    from quantizers_tpu_torch.data.simple_tokenizer import load_tokenizer
+    from quantizers_tpu_torch.models import ModelSpec, load_hf_model
+    from quantizers_tpu_torch.oneshot import make_batches, oneshot
+    from quantizers_tpu_torch.oneshot.engine import streaming_peak_bytes
+    from quantizers_tpu_torch.ops import kernels as K
+    from quantizers_tpu_torch.recipes import parse_recipe
+
+    card = detail["device"]
+    cfg = CalibrationSetConfig.from_file(str(REAL_SET))
+    n, T = sum(d.num_samples for d in cfg.datasets), cfg.max_seq_length
+    gen = torch.Generator().manual_seed(SCALE_SEED)
+    paths = (("F", ModelSpec(**GEOMETRY), "recipe_dense_nvfp4", F_SEED, 7),
+             ("G", ModelSpec(**dict(MOE_GEOMETRY, num_layers=G_LAYERS)),
+              "recipe_moe_rtn_nvfp4", F_SEED + 1, 3 * MOE_GEOMETRY["num_experts"]))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_scale_") as tmp:
+        for label, spec, recipe_name, seed, per_layer in paths:
+            bf16, out = Path(tmp) / f"{label}_bf16", Path(tmp) / f"{label}_out"
+            info = write_bf16_model(spec, seed, bf16)
+            ids = torch.randint(0, spec.vocab_size, (n, T), generator=gen, dtype=torch.int32)
+            batches = make_batches(list(ids.numpy()), max_seq_length=T, batch_size=4)
+            recipe = parse_recipe(str(ROOT / "configs" / "recipes" / f"{recipe_name}.yaml"))
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            spec_l, params = load_hf_model(bf16, device="cuda")
+            tokenizer = load_tokenizer(str(bf16))
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            res = oneshot(spec_l, params, recipe, batches, device="cuda")
+            torch.cuda.synchronize()
+            oneshot_s = time.perf_counter() - t0
+            del params
+            peak = torch.cuda.max_memory_allocated()
+            t0 = time.perf_counter()
+            save_result(spec_l, res, out, tokenizer, bf16, torch.device("cuda"))
+            save_s = time.perf_counter() - t0
+            counts = K.launch_counts()
+            row = {"device": card, "samples": n, "seq_len": T, "batches": len(batches),
+                   "tokens": n * T, "layers": spec.num_layers, "checkpoint": info,
+                   "load_s": load_s, "oneshot_s": oneshot_s,
+                   **{k: res.stats[k] for k in ("capture_s", "solve_s", "propagate_s")},
+                   "save_s": save_s, "peak_memory_gb": peak / 1e9,
+                   "hiddens_gb": n * T * spec.hidden_size * 2 / 1e9,
+                   "records": len(res.records), "launches": counts,
+                   "output_bytes": sum(f.stat().st_size for f in out.iterdir())}
+            log(f"[calibration scale, path {label}] ({card}) {row}")
+            check(row["records"] == spec.num_layers * per_layer,
+                  f"calibration scale {label}: {row['records']} records")
+            check(counts["flash_attention"] == spec.num_layers * len(batches),
+                  f"calibration scale {label}: flash launches {counts['flash_attention']}, "
+                  f"want one a layer and batch")
+            detail[f"path_{label}"] = row
+            del res
+            shutil.rmtree(bf16)
+            shutil.rmtree(out)
+    # the 48-layer model: device mode holds its bf16 params and every
+    # batch's hiddens; host mode one layer and one batch (the records, 4
+    # bytes a weight, go to the host in both)
+    full = ModelSpec(**MOE_GEOMETRY)
+    plan = streaming_peak_bytes(full, 4, T)
+    detail["plan_qwen3_30b_a3b_48_layers"] = {
+        "params_bf16_gb": (plan["embed_bytes"] * (1 if full.tie_word_embeddings else 2)
+                           + plan["layer_bytes"] * full.num_layers) / 1e9,
+        "hiddens_gb": n * T * full.hidden_size * 2 / 1e9,
+        "host_mode_peak_gb": plan["peak_bytes"] / 1e9,
+        "expert_records_host_gb": full.num_layers * 3 * full.num_experts
+        * full.hidden_size * full.moe_intermediate_size * 4 / 1e9}
+    log(f"[calibration scale] 48-layer plan {detail['plan_qwen3_30b_a3b_48_layers']}")
+
+
+def oneshot_phases(detail) -> None:
+    """Phases 16-18: paths F and G (slice 6 and the RTN oneshot engine), from
+    bf16 checkpoints to served compressed ones, and the engine card against
+    CPU; ``detail["device"]`` holds the card's nvidia-smi line. The
+    checkpoints, the calibration cache and HF's caches live in a temporary
+    directory, removed at the end; nothing is fetched."""
+    for var in ("HF_DATASETS_OFFLINE", "HF_HUB_OFFLINE", "TRANSFORMERS_OFFLINE"):
+        os.environ[var] = "1"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_oneshot_") as tmp:
+        os.environ["HF_HOME"] = str(Path(tmp) / "hf_home")
+        two = oneshot_dense_phase(detail, Path(tmp))
+        one = oneshot_moe_phase(detail, Path(tmp))
+        card_vs_cpu_oneshot(detail, Path(tmp), two, one)
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     # the port is imported inside the phases, so that a copy of this script
@@ -2328,10 +2856,22 @@ def main() -> int:
                 line.startswith("=="):
             log(f"[build] {line.strip()}")
 
-    # phase 3: kernels
-    gen = torch.Generator(device="cuda").manual_seed(0)
     detail = {"device": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
               "build_s": _build.INFO.seconds}
+    out_dir = ROOT / "chiprun_out"
+    if sys.argv[1:] == ["--calibration-scale"]:
+        for var in ("HF_DATASETS_OFFLINE", "HF_HUB_OFFLINE", "TRANSFORMERS_OFFLINE"):
+            os.environ[var] = "1"
+        calibration_scale(detail)
+        detail["total_s"] = time.perf_counter() - t_start
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_calibration_scale.json").write_text(json.dumps(detail, indent=1))
+        log(f"[done] {detail['total_s']:.1f} s")
+        return 0
+    check(not sys.argv[1:], f"chip_smoke: unknown arguments {sys.argv[1:]}")
+
+    # phase 3: kernels
+    gen = torch.Generator(device="cuda").manual_seed(0)
     # K1 at decode (m 8: the kernels line's layer sum) and at the batcher's
     # row prefills (m 32, 128)
     w4_rows = {f"{label}@m{m}": r for m in (8, 32, 128) for label, r in w4_layer(gen, m).items()}
@@ -2383,6 +2923,9 @@ def main() -> int:
     del params_e
     torch.cuda.empty_cache()
     card_vs_cpu_mla(detail, synthetic_text())
+
+    # phases 16-18: paths F and G, and the engine card against CPU
+    oneshot_phases(detail)
 
     # phase 15: the kernels line (w4, the NVFP4 and the fp8 matmuls: the four
     # calls of one decoder layer at m = 8, summed)
@@ -2467,7 +3010,6 @@ def main() -> int:
     ]
     check(all(k["launches"] > 0 for k in kernels_line), "a kernel never launched on its path")
     detail["total_s"] = time.perf_counter() - t_start
-    out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_detail.json").write_text(json.dumps(detail, indent=1))
     log(f"[done] {detail['total_s']:.1f} s; serve {json.dumps(detail['serve'])}; "

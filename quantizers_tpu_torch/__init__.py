@@ -9,12 +9,42 @@ and decode engine and the continuous batcher, with hand-written CUDA
 kernels (``csrc/``) for the w4, w8 and NVFP4 weight-only matmuls, one-token
 decode attention and the MoE slot FFNs. It reads and writes safetensors
 and compressed-tensors checkpoints (``formats``, ``models.loader``),
-scores perplexity through a flash-attention kernel, and has the
-``eval_ppl``, ``serve`` and ``make_tiny_model`` CLIs. Entry points run on the CUDA card
+scores perplexity through a flash-attention kernel, and makes compressed
+checkpoints from bf16 ones: YAML run configs and recipes, calibration sets,
+and the layer-sequential oneshot engine with RTN (``oneshot``). Its CLIs
+are ``do_oneshot``, ``eval_ppl``, ``serve``, ``validate_config``,
+``recombine`` and ``make_tiny_model``. Entry points run on the CUDA card
 unless the caller passes ``device="cpu"``, where every kernel's plain
 PyTorch version runs instead.
 
 The package imports ``torch`` and never ``jax`` or ``quantizers_tpu``.
+
+Quick start::
+
+    from quantizers_tpu_torch import load_quantization_config
+    cfg = load_quantization_config("configs/test-quantize_qwen3-4b-awq.yaml")
+
+    from quantizers_tpu_torch.data import CalibrationSet
+    calib = CalibrationSet.from_config(cfg.calibration_set_config, cache_dir="./cache")
 """
 
 __version__ = "0.1.0"
+
+from .config import (  # noqa: F401,E402
+    ModelConfig,
+    QuantizationConfig,
+    QuantizationRunConfig,
+    load_quantization_config,
+    load_yaml,
+)
+from .data.formatters import DatasetFmt  # noqa: F401,E402
+
+__all__ = [
+    "__version__",
+    "ModelConfig",
+    "QuantizationConfig",
+    "QuantizationRunConfig",
+    "load_quantization_config",
+    "load_yaml",
+    "DatasetFmt",
+]

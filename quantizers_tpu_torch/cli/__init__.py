@@ -1,5 +1,12 @@
 """Command-line entry points of the port.
 
+* ``python -m quantizers_tpu_torch.cli.do_oneshot`` — calibrated
+  quantization of a local bf16 checkpoint (reference ``scripts/do_oneshot.py``;
+  RTN recipes)
+* ``python -m quantizers_tpu_torch.cli.validate_config`` — quantization_config
+  schema check (reference ``scripts/quant_config_debug.py``)
+* ``python -m quantizers_tpu_torch.cli.recombine`` — mixed-precision weight
+  surgery (reference ``scripts/recombine_weights_MiniMax-M2.1.py``)
 * ``python -m quantizers_tpu_torch.cli.eval_ppl`` — perplexity of a
   checkpoint over a text file (sliding windows)
 * ``python -m quantizers_tpu_torch.cli.serve`` — continuous-batching
@@ -7,7 +14,8 @@
 * ``python -m quantizers_tpu_torch.cli.make_tiny_model`` — write a tiny
   local HF checkpoint for offline smoke runs
 
-Each runs on the CUDA card unless ``--device cpu`` is given. The JAX package's quantization CLIs (``do_oneshot``,
-``model_free``, ``recombine``, ``validate_config``) wait for their slices
-(ROADMAP).
+``do_oneshot``, ``eval_ppl``, ``serve`` and ``make_tiny_model`` run on the
+CUDA card unless ``--device cpu`` is given; ``validate_config`` and
+``recombine`` read and copy files only. The JAX package's ``model_free``
+waits for ROADMAP queue 1, slice 7f.
 """

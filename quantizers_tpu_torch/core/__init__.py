@@ -1,4 +1,4 @@
-"""Core quantization numerics: schemes and INT quant/dequant math."""
+"""Core quantization numerics: schemes, quantize / dequantize, observers."""
 
 from .scheme import (  # noqa: F401
     ActOrder,
@@ -20,6 +20,7 @@ from .numerics import (  # noqa: F401
     QuantizedTensor,
     compute_scale_zp,
     dequantize,
+    fake_quantize,
     minmax_along,
     quantize,
 )

@@ -166,19 +166,21 @@ def quantize(w: torch.Tensor, args: QuantizationArgs,
              zero_point: Optional[torch.Tensor] = None,
              global_scale: Optional[torch.Tensor] = None) -> QuantizedTensor:
     """Quantize ``w`` under INT, FP8 or NVFP4 (``tensor_group``) ``args``;
-    solves min/max (NVFP4: absmax and global) scales if not given. FP8
+    solves the scales if not given: min/max, the ``mse`` observer's search
+    (:func:`_mse_scale_zp`), or NVFP4's absmax and global scale. FP8
     values come back as f32 numbers on the E4M3 grid, as in the JAX
     package."""
     if args.strategy == QuantStrategy.TENSOR_GROUP:
         return _quantize_nvfp4(w.float(), args, scale, global_scale)
-    if args.observer and "mse" in args.observer:
-        raise NotImplementedError("the mse observer lands with the calibration slice")
     orig_shape = tuple(w.shape)
     w = w.float()
     s = args.strategy
     if scale is None:
-        mn, mx = minmax_along(w, args)
-        scale, zero_point = compute_scale_zp(mn, mx, args)
+        if args.observer and "mse" in args.observer:
+            scale, zero_point = _mse_scale_zp(w, args)
+        else:
+            mn, mx = minmax_along(w, args)
+            scale, zero_point = compute_scale_zp(mn, mx, args)
 
     if s in (QuantStrategy.TENSOR, QuantStrategy.CHANNEL, QuantStrategy.TOKEN):
         x = w / scale
@@ -230,3 +232,55 @@ def dequantize(qt: QuantizedTensor, args: QuantizationArgs) -> torch.Tensor:
             b = b - qt.zero_point[..., None, None]
         return _unblocked(b * scale[..., None, None], qt.shape)
     raise NotImplementedError(f"strategy {s.value} is not ported yet")
+
+
+def _reduce_err_to_scale(err: torch.Tensor, args: QuantizationArgs) -> torch.Tensor:
+    """Sum a per-element error tensor down to the scale grid's shape."""
+    s = args.strategy
+    if s == QuantStrategy.TENSOR:
+        return torch.sum(err)
+    if s in (QuantStrategy.CHANNEL, QuantStrategy.TOKEN):
+        return torch.sum(err, dim=-1, keepdim=True)
+    if s == QuantStrategy.GROUP:
+        return torch.sum(_grouped(err, int(args.group_size)), dim=-1)
+    if s == QuantStrategy.BLOCK:
+        return torch.sum(_blocked(err, tuple(args.block_structure)), dim=(-1, -2))
+    raise ValueError(f"mse observer unsupported for strategy {s}")
+
+
+#: the ``mse`` observer's search: MSE_GRID clip ratios in (MSE_SHRINK_MIN, 1]
+MSE_GRID, MSE_SHRINK_MIN = 12, 0.4
+
+
+def _mse_scale_zp(w: torch.Tensor, args: QuantizationArgs) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The data-aware ``mse`` observer: per scale cell, the clip ratio on the
+    min/max envelope with the least quantization error, among ``MSE_GRID``
+    ratios in (MSE_SHRINK_MIN, 1]; the first of equal errors wins. The ratio
+    multiplies as an f32 number, as in the JAX package."""
+    w = w.float()
+    mn0, mx0 = minmax_along(w, args)
+    best_scale = best_zp = best_err = None
+    for i in range(MSE_GRID):
+        r = MSE_SHRINK_MIN + (1.0 - MSE_SHRINK_MIN) * (i + 1) / MSE_GRID
+        s_i, zp_i = compute_scale_zp(mn0 * torch.full_like(mn0, r),
+                                     mx0 * torch.full_like(mx0, r), args)
+        qt = quantize(w, args, scale=s_i, zero_point=None if args.symmetric else zp_i)
+        d = dequantize(qt, args) - w
+        err = _reduce_err_to_scale(d * d, args)
+        if best_err is None:
+            best_scale, best_zp, best_err = s_i, zp_i, err
+        else:
+            better = err < best_err
+            best_scale = torch.where(better, s_i, best_scale)
+            best_zp = torch.where(better, zp_i, best_zp)
+            best_err = torch.minimum(err, best_err)
+    return best_scale, best_zp
+
+
+def fake_quantize(w: torch.Tensor, args: QuantizationArgs,
+                  scale: Optional[torch.Tensor] = None,
+                  zero_point: Optional[torch.Tensor] = None,
+                  global_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """quantize -> dequantize, back in ``w``'s dtype (QDQ)."""
+    qt = quantize(w, args, scale=scale, zero_point=zero_point, global_scale=global_scale)
+    return dequantize(qt, args).to(w.dtype)

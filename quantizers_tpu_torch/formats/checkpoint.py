@@ -37,6 +37,14 @@ class CompressedParam:
     g_idx: Optional[torch.Tensor] = None  # actorder permutation, if any
 
 
+def _qt_to(qt: QuantizedTensor, device: torch.device) -> QuantizedTensor:
+    """The quantized tensor with every part on ``device``."""
+    def to(t):
+        return None if t is None else t.to(device)
+    return qt._replace(values=to(qt.values), scale=to(qt.scale),
+                       zero_point=to(qt.zero_point), global_scale=to(qt.global_scale))
+
+
 def save_compressed_model(
     out_dir: Union[str, Path],
     plain_params: Dict[str, torch.Tensor],
@@ -47,13 +55,15 @@ def save_compressed_model(
     kv_cache_scheme: Optional[QuantizationArgs] = None,
     max_shard_bytes: int = 5 * 1024**3,
     scale_dtype: torch.dtype = torch.bfloat16,
+    pack_device: Optional[torch.device] = None,
 ) -> None:
     """Write a compressed-tensors checkpoint directory.
 
     ``plain_params`` maps full param names (``...weight``) to tensors stored
     as they are; ``quant_params`` maps *module prefixes* (no ``.weight``
-    suffix) to their quantized payloads, which are packed on their own
-    device and then moved to the CPU.
+    suffix) to their quantized payloads, which are packed on
+    ``pack_device`` (their own device if None), one at a time, and then
+    moved to the CPU.
     """
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
@@ -62,7 +72,8 @@ def save_compressed_model(
     for name, t in plain_params.items():
         writer.add(name, t)
     for prefix, cp in quant_params.items():
-        tensors = compress_tensor(prefix, cp.qt, cp.args, scale_dtype=scale_dtype)
+        qt = cp.qt if pack_device is None else _qt_to(cp.qt, pack_device)
+        tensors = compress_tensor(prefix, qt, cp.args, scale_dtype=scale_dtype)
         if cp.g_idx is not None:
             tensors[f"{prefix}.weight_g_idx"] = cp.g_idx.to(torch.int32)
         writer.add_many(tensors)

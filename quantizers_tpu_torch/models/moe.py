@@ -14,8 +14,12 @@ is a valid :class:`~quantizers_tpu_torch.ops.linear.QuantLinear`.
   token through ``QuantLinear.apply`` and zeroes the unrouted contributions
   with the dense combine weights.
 
-The activation ``capture`` for calibration waits for the calibration slice
-(ROADMAP queue 1, slice 7).
+With a ``capture`` dict (calibration), the loop runs whatever the token
+count and records the JAX package's keys: ``router``, ``moe_gate_proj`` and
+``moe_up_proj`` (one tensor: the pre-routing tokens (N, D)),
+``moe_down_proj`` (every expert's down-projection input, stacked (E, N,
+Fe)), ``moe_weights`` (the dense (N, E) combine weights) and, with shared
+experts, ``shared_gate_proj`` / ``shared_up_proj`` / ``shared_down_proj``.
 """
 
 from __future__ import annotations
@@ -175,16 +179,21 @@ def _gathered_topk_ffn(moe: Dict[str, Any], h2: torch.Tensor, topi: torch.Tensor
     return y.sum(dim=1)
 
 
-def _shared_ffn(shared: Dict[str, QuantLinear], h2: torch.Tensor) -> torch.Tensor:
+def _shared_ffn(shared: Dict[str, QuantLinear], h2: torch.Tensor,
+                capture: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
     a = F.silu(shared["gate_proj"].apply(h2).float()).to(h2.dtype) * shared["up_proj"].apply(h2)
+    if capture is not None:
+        capture.update(shared_gate_proj=h2, shared_up_proj=h2, shared_down_proj=a)
     return shared["down_proj"].apply(a).float()
 
 
 def moe_forward(moe: Dict[str, Any], spec, x: torch.Tensor,
-                all_experts: bool = False) -> torch.Tensor:
+                all_experts: bool = False,
+                capture: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
     """x (B, T, D) -> (B, T, D): the gathered path for at most
     ``_GATHER_DECODE_MAX_TOKENS`` tokens with N*k < E and bias-free expert
-    stacks (and not ``all_experts``), else the loop over every expert."""
+    stacks (and neither ``all_experts`` nor ``capture``), else the loop over
+    every expert, which fills ``capture`` (module docstring)."""
     B, T, D = x.shape
     N = B * T
     h2 = x.reshape(N, D)
@@ -202,8 +211,8 @@ def moe_forward(moe: Dict[str, Any], spec, x: torch.Tensor,
                     for key in ("gate_up_proj", "gate_proj", "up_proj", "down_proj")
                     if key in moe)
     shared = moe.get("shared_experts")
-    if (not all_experts and bias_free and N <= _GATHER_DECODE_MAX_TOKENS
-            and N * k < spec.num_experts):
+    if (capture is None and not all_experts and bias_free
+            and N <= _GATHER_DECODE_MAX_TOKENS and N * k < spec.num_experts):
         y = _gathered_topk_ffn(moe, h2, topi, topv)
         if shared is not None:
             y = y + _shared_ffn(shared, h2)
@@ -214,6 +223,7 @@ def moe_forward(moe: Dict[str, Any], spec, x: torch.Tensor,
     weights = torch.einsum("nk,nke->ne", topv, onehot)  # dense (N, E)
     down: ExpertLinears = moe["down_proj"]
     y = torch.zeros((N, D), dtype=torch.float32, device=x.device)
+    down_inputs = []
     for e in range(E):
         if "gate_up_proj" in moe:  # fused w8pc layout: one apply gives gate|up
             guv = moe["gate_up_proj"].expert(e).apply(h2).float()
@@ -222,8 +232,13 @@ def moe_forward(moe: Dict[str, Any], spec, x: torch.Tensor,
         else:
             g = moe["gate_proj"].expert(e).apply(h2)
             a = F.silu(g.float()).to(h2.dtype) * moe["up_proj"].expert(e).apply(h2)
+        if capture is not None:
+            down_inputs.append(a)
         out = down.expert(e).apply(a)  # (N, D)
         y = y + weights[:, e, None] * out.float()
     if shared is not None:
-        y = y + _shared_ffn(shared, h2)
+        y = y + _shared_ffn(shared, h2, capture)
+    if capture is not None:
+        capture.update(router=h2, moe_gate_proj=h2, moe_up_proj=h2,
+                       moe_down_proj=torch.stack(down_inputs), moe_weights=weights)
     return y.to(x.dtype).reshape(B, T, D)

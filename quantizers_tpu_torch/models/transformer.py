@@ -15,6 +15,13 @@ Clone a cache (:meth:`KVCache.clone`) to replay a decode from one start.
 A forward without a cache attends through the flash kernel
 (:mod:`~quantizers_tpu_torch.ops.flash`) where the JAX package does.
 
+``apply_layer(..., capture=dict)`` fills the dict with each linear's input
+(keyed by projection name), the post-rope K and V an FP8 KV cache would
+store (``k_cache`` / ``v_cache``) and the MoE block's routing inputs, under
+the JAX package's keys: the activation feed of the calibration engine
+(:mod:`~quantizers_tpu_torch.oneshot`). Keys whose inputs are one tensor
+hold the same tensor object (q/k/v, gate/up).
+
 MLA models (DeepSeek-V2/V3, GLM-Flash) keep the latent cache of the
 absorbed form: one shared (c_kv, rope-k) row per token; their one-token
 decode step runs the MLA decode kernel, their cached prefill the absorbed
@@ -185,7 +192,8 @@ def _cache_and_mask(cache: Optional[KVCache], k: torch.Tensor, v: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def attention(layer: Dict[str, Any], spec: ModelSpec, x: torch.Tensor,
-              positions: torch.Tensor, cache: Optional[KVCache]
+              positions: torch.Tensor, cache: Optional[KVCache],
+              capture: Optional[Dict[str, torch.Tensor]] = None
               ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """x (B, T, D) post-layernorm -> (attn_out (B, T, D), cache)."""
     from ..ops import flash, kernels
@@ -208,6 +216,10 @@ def attention(layer: Dict[str, Any], spec: ModelSpec, x: torch.Tensor,
     cos, sin = rotary_cos_sin(positions, hd, spec.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
+    if capture is not None:
+        # post-rope K and V: what an FP8 KV cache would store
+        capture["k_cache"] = k
+        capture["v_cache"] = v
 
     rep = H // KV
     sm_scale = 1.0 / math.sqrt(hd)
@@ -219,7 +231,10 @@ def attention(layer: Dict[str, Any], spec: ModelSpec, x: torch.Tensor,
         ctx4 = kernels.decode_attention(q4, k[:, 0], v[:, 0], cache.k, cache.v,
                                         cache.length, sm_scale)
         cache.length += 1
-        return layer["o_proj"].apply(ctx4.reshape(B, 1, H * hd)), cache
+        ctx = ctx4.reshape(B, 1, H * hd)
+        if capture is not None:
+            capture["o_proj"] = ctx
+        return layer["o_proj"].apply(ctx), cache
 
     k_att, v_att, mask, cache = _cache_and_mask(cache, k, v, positions, x.dtype)
     if cache is None and T > 1:
@@ -228,19 +243,26 @@ def attention(layer: Dict[str, Any], spec: ModelSpec, x: torch.Tensor,
         # takes the shape; the einsum below for the rest
         qh = q.transpose(1, 2)
         if flash.flash_reason(qh, k_att, v_att) is None:
-            ctx = flash.flash_attention(qh, k_att, v_att, sm_scale)
-            return layer["o_proj"].apply(ctx.transpose(1, 2).reshape(B, T, H * hd)), None
+            ctx = flash.flash_attention(qh, k_att, v_att, sm_scale).transpose(1, 2)
+            ctx = ctx.reshape(B, T, H * hd)
+            if capture is not None:
+                capture["o_proj"] = ctx
+            return layer["o_proj"].apply(ctx), None
     # GQA without repeating KV: fold the head group into the query side
     qg = q.reshape(B, T, KV, rep, hd)
     scores = torch.einsum("btkrd,bksd->bkrts", qg.float(), k_att.float()) * sm_scale
     scores = scores.masked_fill(~mask[:, None, None, :, :], -1e30)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     ctx = torch.einsum("bkrts,bksd->btkrd", probs.float(), v_att.float()).to(x.dtype)
-    return layer["o_proj"].apply(ctx.reshape(B, T, H * hd)), cache
+    ctx = ctx.reshape(B, T, H * hd)
+    if capture is not None:
+        capture["o_proj"] = ctx
+    return layer["o_proj"].apply(ctx), cache
 
 
 def mla_attention(layer: Dict[str, Any], spec: ModelSpec, x: torch.Tensor,
-                  positions: torch.Tensor, cache: Optional[KVCache]
+                  positions: torch.Tensor, cache: Optional[KVCache],
+                  capture: Optional[Dict[str, torch.Tensor]] = None
                   ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Multi-head Latent Attention (DeepSeek-V2/V3, GLM-Flash), x (B, T, D)
     post-layernorm -> (attn_out (B, T, D), cache).
@@ -252,7 +274,11 @@ def mla_attention(layer: Dict[str, Any], spec: ModelSpec, x: torch.Tensor,
     (W_uk_h^T q_nope_h) . c + q_pe_h . k_pe, ctx_h = W_uv_h (p . C); a
     one-token step goes through the MLA decode kernel, which writes the new
     latent row in place, and other steps (prefill, an fp8 cache) through
-    the same math as einsums over the stored prefix."""
+    the same math as einsums over the stored prefix.
+
+    ``capture`` takes the inputs of q_b_proj, kv_b_proj and o_proj and, on
+    the no-cache path, what the latent cache stores: ``k_cache`` the latent
+    c_kv, ``v_cache`` the shared post-rope k_pe row (B, T, 1, dr)."""
     from ..ops import flash, kernels
 
     B, T, _ = x.shape
@@ -260,14 +286,18 @@ def mla_attention(layer: Dict[str, Any], spec: ModelSpec, x: torch.Tensor,
     dn, dr, dv = spec.qk_nope_head_dim, spec.qk_rope_head_dim, spec.v_head_dim
     dq, r, eps = dn + dr, spec.kv_lora_rank, spec.rms_norm_eps
     if spec.q_lora_rank:
-        q = layer["q_b_proj"].apply(rms_norm(layer["q_a_proj"].apply(x),
-                                             layer["q_a_layernorm"], eps))
+        cq = rms_norm(layer["q_a_proj"].apply(x), layer["q_a_layernorm"], eps)
+        if capture is not None:
+            capture["q_b_proj"] = cq
+        q = layer["q_b_proj"].apply(cq)
     else:
         q = layer["q_proj"].apply(x)
     q = q.reshape(B, T, H, dq)
     q_nope, q_pe = q[..., :dn], q[..., dn:]
     ckv = layer["kv_a_proj_with_mqa"].apply(x)  # (B, T, r + dr)
     c_kv = rms_norm(ckv[..., :r], layer["kv_a_layernorm"], eps)
+    if capture is not None:
+        capture["kv_b_proj"] = c_kv
     cos, sin = rotary_cos_sin(positions, dr, spec.rope_theta)
     q_pe = apply_rope_interleaved(q_pe, cos, sin)
     k_pe = apply_rope_interleaved(ckv[..., r:][:, :, None, :], cos, sin)  # (B, T, 1, dr)
@@ -278,21 +308,30 @@ def mla_attention(layer: Dict[str, Any], spec: ModelSpec, x: torch.Tensor,
         k_nope, v = kv[..., :dn], kv[..., dn:]
         q_full = torch.cat([q_nope, q_pe], dim=-1)
         k = torch.cat([k_nope, k_pe.expand(B, T, H, dr)], dim=-1)
+        if capture is not None:
+            capture["k_cache"] = c_kv
+            capture["v_cache"] = k_pe
         if T > 1:
             pad = -(-dq // 128) * 128 - dq  # zero channels add nothing to a score
             qp = F.pad(q_full.transpose(1, 2), (0, pad))
             kp = F.pad(k.transpose(1, 2), (0, pad))
             vp = v.transpose(1, 2)
             if flash.flash_reason(qp, kp, vp) is None:
-                ctx = flash.flash_attention(qp, kp, vp, sm_scale)
-                return layer["o_proj"].apply(ctx.transpose(1, 2).reshape(B, T, H * dv)), None
+                ctx = flash.flash_attention(qp, kp, vp, sm_scale).transpose(1, 2)
+                ctx = ctx.reshape(B, T, H * dv)
+                if capture is not None:
+                    capture["o_proj"] = ctx
+                return layer["o_proj"].apply(ctx), None
         idx = torch.arange(T, device=x.device)
         mask = idx[:, None] >= idx[None, :]  # (T, T) causal
         scores = torch.einsum("bthd,bshd->bhts", q_full.float(), k.float()) * sm_scale
         scores = scores.masked_fill(~mask, -1e30)
         probs = torch.softmax(scores, dim=-1).to(x.dtype)
         ctx = torch.einsum("bhts,bshd->bthd", probs.float(), v.float()).to(x.dtype)
-        return layer["o_proj"].apply(ctx.reshape(B, T, H * dv)), None
+        ctx = ctx.reshape(B, T, H * dv)
+        if capture is not None:
+            capture["o_proj"] = ctx
+        return layer["o_proj"].apply(ctx), None
 
     # the cached path: latent rows, absorbed attention
     w_uk_t, w_uv = _mla_absorb_weights(layer, spec, x.dtype)
@@ -359,13 +398,16 @@ def _mla_absorb_weights(layer: Dict[str, Any], spec: ModelSpec, dtype
     return w[..., :dn].permute(1, 2, 0).contiguous(), w[..., dn:].permute(1, 0, 2).contiguous()
 
 
-def dense_mlp(mlp: Dict[str, QuantLinear], x: torch.Tensor) -> torch.Tensor:
+def dense_mlp(mlp: Dict[str, QuantLinear], x: torch.Tensor,
+              capture: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
     if "gateup_proj" in mlp:
         g, u = torch.chunk(mlp["gateup_proj"].apply(x), 2, dim=-1)
     else:
         g = mlp["gate_proj"].apply(x)
         u = mlp["up_proj"].apply(x)
     h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
+    if capture is not None:
+        capture["down_proj"] = h
     return mlp["down_proj"].apply(h)
 
 
@@ -375,18 +417,30 @@ def dense_mlp(mlp: Dict[str, QuantLinear], x: torch.Tensor) -> torch.Tensor:
 
 def apply_layer(layer: Dict[str, Any], spec: ModelSpec, layer_idx: int,
                 x: torch.Tensor, positions: torch.Tensor,
-                cache: Optional[KVCache] = None, moe_all_experts: bool = False
+                cache: Optional[KVCache] = None, moe_all_experts: bool = False,
+                capture: Optional[Dict[str, torch.Tensor]] = None
                 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """One decoder block. ``moe_all_experts`` sends an MoE layer's tokens
-    through the loop over every expert even when few."""
+    through the loop over every expert even when few. ``capture``, when a
+    dict, is filled with the inputs of each linear (keyed by projection
+    name): the activation feed of the calibration observers."""
     h = rms_norm(x, layer["input_layernorm"], spec.rms_norm_eps)
+    if capture is not None:
+        keys = (("q_a_proj" if spec.q_lora_rank else "q_proj", "kv_a_proj_with_mqa")
+                if spec.is_mla else ("q_proj", "k_proj", "v_proj"))
+        capture.update(dict.fromkeys(keys, h))
     attend = mla_attention if spec.is_mla else attention
-    attn_out, cache = attend(layer, spec, h, positions, cache)
+    attn_out, cache = attend(layer, spec, h, positions, cache, capture)
     x = x + attn_out
     h = rms_norm(x, layer["post_attention_layernorm"], spec.rms_norm_eps)
     if spec.layer_is_moe(layer_idx):
-        return x + moe_forward(layer["moe"], spec, h, all_experts=moe_all_experts), cache
-    return x + dense_mlp(layer["mlp"], h), cache
+        if capture is not None:
+            capture["moe_in"] = h
+        return x + moe_forward(layer["moe"], spec, h, all_experts=moe_all_experts,
+                               capture=capture), cache
+    if capture is not None:
+        capture.update(dict.fromkeys(("gate_proj", "up_proj"), h))
+    return x + dense_mlp(layer["mlp"], h, capture), cache
 
 
 def embed(params: Dict[str, Any], input_ids: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
@@ -406,9 +460,12 @@ def logits_head(params: Dict[str, Any], spec: ModelSpec, x: torch.Tensor) -> tor
 
 def forward(params: Dict[str, Any], spec: ModelSpec, input_ids: torch.Tensor,
             caches: Optional[List[KVCache]] = None,
-            positions: Optional[torch.Tensor] = None
+            positions: Optional[torch.Tensor] = None,
+            moe_all_experts: bool = False
             ) -> Tuple[torch.Tensor, Optional[List[KVCache]]]:
-    """(B, T) ids -> (B, T, vocab) logits; caches are advanced in place."""
+    """(B, T) ids -> (B, T, vocab) logits; caches are advanced in place.
+    ``moe_all_experts`` runs every MoE layer through its loop over all
+    experts (:func:`apply_layer`)."""
     B, T = input_ids.shape
     dev = input_ids.device
     if positions is None:
@@ -419,7 +476,7 @@ def forward(params: Dict[str, Any], spec: ModelSpec, input_ids: torch.Tensor,
     x = embed(params, input_ids)
     for i, layer in enumerate(params["layers"]):
         x, _ = apply_layer(layer, spec, i, x, positions,
-                           caches[i] if caches is not None else None)
+                           caches[i] if caches is not None else None, moe_all_experts)
     return logits_head(params, spec, x), caches
 
 

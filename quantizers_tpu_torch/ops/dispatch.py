@@ -58,7 +58,7 @@ def quant_matmul(x: torch.Tensor, lin: QuantLinear,
     does."""
     if use_kernel is not False and lin.meta_dict.get("act"):
         raise NotImplementedError(
-            "W8A8 activation quantization is not ported yet: ROADMAP queue 1, item 13")
+            "W8A8 activation quantization is not ported yet: ROADMAP queue 1, slice 7b")
     if use_kernel is None:
         use_kernel = _rows(x) <= KERNEL_MAX_ROWS
     fn = kernels.KERNELS.get(lin.kind) if use_kernel else None

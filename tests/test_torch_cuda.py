@@ -1001,7 +1001,7 @@ def test_mla_decode_attention_one_hot_readout(gen):
 
 
 @pytest.mark.parametrize("bits,strategy,group", [(4, "group", 32), (8, "channel", None),
-                                                 (8, "block", None)])
+                                                 (8, "block", None), (4, "tensor_group", 16)])
 def test_quantize_on_the_card_equals_the_cpu(gen, bits, strategy, group):
     """The scale solvers divide by tensors: PyTorch's CUDA division by a
     Python scalar multiplies by its reciprocal, which moves scales (and
@@ -1009,7 +1009,7 @@ def test_quantize_on_the_card_equals_the_cpu(gen, bits, strategy, group):
     from quantizers_tpu_torch.core import numerics as tn
     from quantizers_tpu_torch.core import scheme as ts
 
-    kind = ts.QuantType.FLOAT if strategy == "block" else ts.QuantType.INT
+    kind = ts.QuantType.INT if strategy in ("group", "channel") else ts.QuantType.FLOAT
     args = ts.QuantizationArgs(num_bits=bits, type=kind, strategy=ts.QuantStrategy(strategy),
                                group_size=group,
                                block_structure=(128, 128) if strategy == "block" else None)
@@ -1017,3 +1017,40 @@ def test_quantize_on_the_card_equals_the_cpu(gen, bits, strategy, group):
     card, cpu = tn.quantize(w, args), tn.quantize(w.cpu(), args)
     assert torch.equal(card.scale.cpu(), cpu.scale)
     assert torch.equal(card.values.cpu(), cpu.values)
+    if strategy == "tensor_group":  # NVFP4: the global scale too
+        assert torch.equal(card.global_scale.cpu(), cpu.global_scale)
+
+
+@pytest.mark.parametrize("recipe", ["recipe_dense_nvfp4", "recipe_fp8_kv8"])
+def test_oneshot_records_leave_the_card(gen, tmp_path, recipe):
+    """The engine on the card moves each record to the host as it is made,
+    and a checkpoint packed on the card holds the same bytes as one packed
+    on the CPU from the same records."""
+    from pathlib import Path
+
+    from quantizers_tpu_torch.formats.checkpoint import save_compressed_model
+    from quantizers_tpu_torch.formats.safetensors_io import ShardedReader
+    from quantizers_tpu_torch.models import ModelSpec, init_params
+    from quantizers_tpu_torch.oneshot import oneshot
+    from quantizers_tpu_torch.recipes import parse_recipe
+
+    root = Path(__file__).resolve().parents[1]
+    spec = ModelSpec.tiny()
+    params = init_params(spec, seed=0, device="cuda")
+    ids = torch.randint(0, spec.vocab_size, (2, 128), generator=gen, device="cuda")
+    batches = [(ids.int().cpu().numpy(), np.ones((2, 128), np.float32))]
+    res = oneshot(spec, params, parse_recipe(str(root / "configs" / "recipes" / f"{recipe}.yaml")),
+                  batches, device="cuda")
+    assert len(res.records) == spec.num_layers * 7
+    for cp in res.records.values():
+        parts = [cp.qt.values, cp.qt.scale, cp.qt.zero_point, cp.qt.global_scale]
+        assert all(t.device.type == "cpu" for t in parts if t is not None)
+    files = {}
+    for dev in ("cuda", "cpu"):
+        save_compressed_model(tmp_path / dev, {}, res.records, res.config_groups, res.ignore,
+                              pack_device=torch.device(dev))
+        reader = ShardedReader(tmp_path / dev)
+        files[dev] = {k: reader.get(k) for k in reader.keys()}
+    assert sorted(files["cuda"]) == sorted(files["cpu"]) and files["cpu"]
+    for k, v in files["cpu"].items():
+        assert torch.equal(files["cuda"][k].view(torch.uint8), v.view(torch.uint8)), k

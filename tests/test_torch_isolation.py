@@ -1,7 +1,10 @@
 """The port stands alone: no module of quantizers_tpu_torch imports jax,
 quantizers_tpu, ml_dtypes or transformers (the machine with the card has
 none of them), importing the kernels needs neither nvcc nor a card, and
-the entry points refuse to fall back to the CPU on their own.
+the entry points refuse to fall back to the CPU on their own. HF
+``datasets`` and ``pyarrow`` (on the card's machine, but slow to import)
+are loaded only by the calibration-set functions that read data, never by
+importing a module.
 
 The import checks run in a subprocess, because the test session's
 conftest.py has already imported JAX.
@@ -37,7 +40,7 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 from quantizers_tpu_torch.ops import _build
-banned = ("jax", "quantizers_tpu", "ml_dtypes", "transformers")
+banned = ("jax", "quantizers_tpu", "ml_dtypes", "transformers", "datasets", "pyarrow")
 bad = sorted(m for m in sys.modules if m.split(".")[0] in banned)
 print(len(names), _build._LIB is None, bad)
 """
