@@ -9,7 +9,9 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
 2. build: compile the CUDA kernels of ``quantizers_tpu_torch/csrc``;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the serving and evaluation paths give it, with timings
-   beside the bound (the fp8 matmul and MLA decode kernels at path E's);
+   beside the bound (the fp8 matmul and MLA decode kernels at path E's,
+   the W8A8 int8 GEMM at Qwen3-4B's projections, unfused and as path I
+   serves them, bit for bit);
 4. serve, slice 1: a Qwen3-4B-shaped W4A16 model at full width and depth
    (random weights from a seeded generator), ``serving_layout(head_bits=8)``,
    an 8 x 128 prefill and 256 greedy decode steps, with the kernels'
@@ -67,7 +69,18 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
     ``recipe_moe_rtn_nvfp4.yaml`` on the first layer of path G's (codes,
     scales, NVFP4's global scales, ``k_scale`` / ``v_scale``, the quantized
     model's logits), and the ``mse`` observer's scales;
-15. after phase 18: one JSON line of per-kernel numbers, then the card's
+19. path H (slice 7e): path F's bf16 checkpoint through ``do_oneshot``
+    with ``recipe_awq_w4a16.yaml`` (AWQ, W4A16 g32), with exact K4 and K1
+    launches in calibration, then ``cli/serve.main`` (K1, K2, K3);
+20. path I (slice 7b): the same checkpoint with ``recipe_w8a8_int8.yaml``
+    (dynamic per-token int8 activations), K10 on every propagate matmul,
+    then ``cli/serve.main`` and a drive with exact per-step K10 launches
+    (phase 3 holds K10 bit-exact against its plain version);
+21. card against CPU: AWQ and SmoothQuant + W8A8 on the first 2 layers of
+    path F's model, ``recipe_minimax_experts_only_awq.yaml`` on the first
+    layer of path G's (each mapping's pick and ``x_mean``, the codes, the
+    logits through K1 or K10 on the card);
+15. after phase 21: one JSON line of per-kernel numbers, then the card's
     nvidia-smi line, then the final ``{"ok": true, ...}`` line.
 
 Longer per-shape numbers go to ``chiprun_out/chip_smoke_detail.json``.
@@ -152,8 +165,12 @@ LOGIT_NORM_RTOL = 2e-2
 TIE_ULPS = 2
 
 
+T_START = time.perf_counter()
+
+
 def log(*a) -> None:
-    print(*a, file=sys.stderr, flush=True)
+    """A progress line on stderr, after the seconds since the script began."""
+    print(f"[{time.perf_counter() - T_START:7.1f} s]", *a, file=sys.stderr, flush=True)
 
 
 def expect(**nonzero) -> dict:
@@ -670,28 +687,32 @@ def serve_phase(gen, detail):
 # phase 7: card against CPU through the same converted weights
 # ---------------------------------------------------------------------------
 
-def logits_agree(label: str, got: torch.Tensor, ref: torch.Tensor) -> dict:
-    """The card's logits against the CPU's: largest |err| within LOGIT_RTOL
-    of the largest |logit|, each position's error norm within
-    LOGIT_NORM_RTOL, the same greedy token except where the CPU's top two
-    logits are a near-tie (the top one's bf16 ulp is
-    2^(floor(log2 |top|) - 7))."""
+def logits_agree(label: str, got: torch.Tensor, ref: torch.Tensor, rtol: float = LOGIT_RTOL,
+                 norm_rtol: float = LOGIT_NORM_RTOL, tie_rtol: float = None) -> dict:
+    """The card's logits against the CPU's: largest |err| within ``rtol``
+    of the largest |logit|, each position's error norm within ``norm_rtol``,
+    the same greedy token except where the CPU's top two logits are a
+    near-tie: within TIE_ULPS bf16 ulps of the top one (its ulp is
+    2^(floor(log2 |top|) - 7)), or with ``tie_rtol`` within that fraction of
+    the largest |logit|."""
     check(bool(torch.isfinite(got).all()), f"{label}: card logits not finite")
     err = (got - ref).abs().max().item()
-    tol = LOGIT_RTOL * ref.abs().max().item()
+    tol = rtol * ref.abs().max().item()
     norm_err = ((got - ref).norm(dim=-1) / ref.norm(dim=-1)).max().item()
     top2 = ref.topk(2, dim=-1).values
-    ulp = torch.exp2(torch.floor(torch.log2(top2[..., 0].abs())) - 7)
-    tie = (top2[..., 0] - top2[..., 1]) <= TIE_ULPS * ulp
+    if tie_rtol is None:
+        window = TIE_ULPS * torch.exp2(torch.floor(torch.log2(top2[..., 0].abs())) - 7)
+    else:
+        window = tie_rtol * ref.abs().max()
+    tie = (top2[..., 0] - top2[..., 1]) <= window
     agree = got.argmax(-1) == ref.argmax(-1)
     row = {"max_abs_err": err, "tol": tol, "max_abs_logit": ref.abs().max().item(),
-           "max_rel_norm_err": norm_err, "rel_norm_tol": LOGIT_NORM_RTOL,
+           "max_rel_norm_err": norm_err, "rel_norm_tol": norm_rtol,
            "positions": agree.numel(), "argmax_agreement": agree.float().mean().item(),
            "near_ties": int(tie.sum())}
     log(f"[{label}] {row}")
     check(err <= tol, f"{label}: max |err| {err:.4g} > tol {tol:.4g}")
-    check(norm_err <= LOGIT_NORM_RTOL,
-          f"{label}: relative error norm {norm_err:.4g} > {LOGIT_NORM_RTOL}")
+    check(norm_err <= norm_rtol, f"{label}: relative error norm {norm_err:.4g} > {norm_rtol}")
     check(bool((agree | tie).all()), f"{label}: greedy token differs at "
           f"{int((~agree & ~tie).sum())} positions that are no near-tie")
     return row
@@ -2453,10 +2474,11 @@ def serve_output(label: str, ckpt: Path, text: str, served: tuple, card: str) ->
     return res
 
 
-def oneshot_dense_phase(detail, tmp: Path) -> Path:
+def oneshot_dense_phase(detail, tmp: Path) -> tuple:
     """Path F: the full-depth Qwen3-4B bf16 checkpoint through do_oneshot
-    with RTN NVFP4 on every linear, then served. Returns the 2-layer bf16
-    checkpoint of the same weights (phase 18's)."""
+    with RTN NVFP4 on every linear, then served. Returns that checkpoint
+    (paths H and I take it) and the 2-layer bf16 checkpoint of the same
+    weights (phases 18 and 21)."""
     from quantizers_tpu_torch.models import ModelSpec
 
     card = detail["device"]
@@ -2475,7 +2497,6 @@ def oneshot_dense_phase(detail, tmp: Path) -> Path:
     w = qcfg["config_groups"]["group_0"]["weights"]
     check((w["num_bits"], w["type"], w["strategy"]) == (4, "float", "tensor_group"),
           f"path F: the checkpoint's scheme is {w}")
-    shutil.rmtree(bf16)
     torch.cuda.empty_cache()
     served = serve_output("path F", out, synthetic_text(),
                           (("decode_attention",), ("w8_matmul",),
@@ -2483,7 +2504,7 @@ def oneshot_dense_phase(detail, tmp: Path) -> Path:
     detail["path_F"] = {"device": card, "checkpoint": info, "oneshot": run,
                         "serve": served}
     shutil.rmtree(out)
-    return two
+    return bf16, two
 
 
 def oneshot_moe_phase(detail, tmp: Path) -> Path:
@@ -2574,19 +2595,27 @@ def mse_on_both(w: dict, devices) -> dict:
     return res
 
 
-def engine_on_both(ckpt: Path, recipe_name: str, batches, ids, devices) -> dict:
-    """``oneshot`` of one repository recipe over one bf16 checkpoint on each
-    device, the CPU (``devices[1]``) first: per device its records (on the
-    host), extra tensors, the quantized model's logits on ``ids``, the
-    router decisions of that forward (the card takes the CPU's, as in
-    ``card_vs_cpu_moe``), the flash launches of calibration, the first
-    q_proj weight as loaded, and the seconds."""
+def engine_on_both(ckpt: Path, recipe_name: str, batches, ids, devices, recipe=None,
+                   cross: bool = False, plain_k10: bool = False) -> dict:
+    """``oneshot`` of one repository recipe (or the ``recipe`` dict given)
+    over one bf16 checkpoint on each device, the CPU (``devices[1]``) first:
+    per device its records (on the host), extra tensors, the quantized
+    model's logits on ``ids``, the router decisions of that forward (the
+    card takes the CPU's, as in ``card_vs_cpu_moe``), the flash launches of
+    calibration, the launches of the logits forward, the first q_proj
+    weight as loaded, and the seconds. With ``cross``, the card also runs
+    the CPU's quantized model (``cross_logits``, ``cross_routes``,
+    ``cross_launches``): the card's kernels against the CPU's plain path on
+    the same weights; with ``plain_k10`` as well once more with K10's plain
+    version in its place on the card (``cross_plain_k10_logits``)."""
     from quantizers_tpu_torch.models import forward, load_hf_model
+    from quantizers_tpu_torch.models.transformer import tree_to
     from quantizers_tpu_torch.oneshot import oneshot
     from quantizers_tpu_torch.ops import kernels as K
     from quantizers_tpu_torch.recipes import parse_recipe
 
-    recipe = parse_recipe(str(ROOT / "configs" / "recipes" / f"{recipe_name}.yaml"))
+    recipe = parse_recipe(recipe if recipe is not None
+                          else str(ROOT / "configs" / "recipes" / f"{recipe_name}.yaml"))
     out = {}
     for dev in reversed(devices):
         t0 = time.perf_counter()
@@ -2596,15 +2625,55 @@ def engine_on_both(ckpt: Path, recipe_name: str, batches, ids, devices) -> dict:
         r = oneshot(spec, params, recipe, batches, device=dev)
         flash = K.launch_counts()["flash_attention"]
         replay = out[devices[1]]["routes"] if dev != devices[1] else None
+        K.reset_launch_counts()
         with torch.no_grad(), RouteRecorder(replay) as rec:
             logits = forward(r.params, spec, torch.as_tensor(ids, device=dev).long()
                              )[0].float().cpu()
         out[dev] = {"records": {k: cp.qt for k, cp in r.records.items()},
                     "extra": r.extra_tensors, "logits": logits, "routes": rec.calls,
-                    "flash": flash, "w": w, "s": time.perf_counter() - t0}
+                    "flash": flash, "forward": K.launch_counts(), "w": w,
+                    "s": time.perf_counter() - t0}
         log(f"[card-vs-cpu oneshot] {recipe_name} on {dev}: {out[dev]['s']:.1f} s")
+        if cross and dev == devices[1]:
+            cpu_params = r.params
         del params, r
+    if cross:
+        dev, cpu = devices
+        K.reset_launch_counts()
+        with torch.no_grad(), RouteRecorder(out[cpu]["routes"]) as rec:
+            logits = forward(tree_to(cpu_params, dev), spec,
+                             torch.as_tensor(ids, device=dev).long())[0].float().cpu()
+        out[dev].update(cross_logits=logits, cross_routes=rec.calls,
+                        cross_launches=K.launch_counts())
+        if plain_k10:
+            with torch.no_grad(), RouteRecorder(out[cpu]["routes"]), K10Plain():
+                out[dev]["cross_plain_k10_logits"] = forward(
+                    tree_to(cpu_params, dev), spec,
+                    torch.as_tensor(ids, device=dev).long())[0].float().cpu()
+        del cpu_params
     return out
+
+
+class K10Plain:
+    """K10's plain version in the wrapper's place while active, on the
+    tensors' own device, as the wrapper computes it on the CPU."""
+
+    def __enter__(self):
+        from quantizers_tpu_torch.ops import kernels as K
+
+        self.mod, self.orig = K, K.w8a8_matmul
+
+        def plain(xq, sx, lin, out_dtype=torch.bfloat16):
+            k, n = lin.in_features, lin.out_features
+            y = K.w8a8_matmul_plain(xq.reshape(-1, k), sx.reshape(-1).float(), lin.weight,
+                                    lin.scale)
+            return y.to(out_dtype).reshape(*xq.shape[:-1], n)
+        K.w8a8_matmul = plain
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.w8a8_matmul = self.orig
+        return False
 
 
 def routes_agree(label: str, got: list, ref: list) -> dict:
@@ -2807,19 +2876,554 @@ def calibration_scale(detail) -> None:
     log(f"[calibration scale] 48-layer plan {detail['plan_qwen3_30b_a3b_48_layers']}")
 
 
-def oneshot_phases(detail) -> None:
-    """Phases 16-18: paths F and G (slice 6 and the RTN oneshot engine), from
-    bf16 checkpoints to served compressed ones, and the engine card against
-    CPU; ``detail["device"]`` holds the card's nvidia-smi line. The
-    checkpoints, the calibration cache and HF's caches live in a temporary
-    directory, removed at the end; nothing is fetched."""
+# ---------------------------------------------------------------------------
+# slices 7b and 7e: K10, the W8A8 int8 GEMM (phase 3), paths H and I from
+# path F's bf16 checkpoint (phases 19-20), and card against CPU (phase 21)
+# ---------------------------------------------------------------------------
+
+#: H100 SXM dense int8 tensor rate (NVIDIA data sheet), operations/s
+INT8_OPS = 1979e12
+#: Qwen3-4B's seven projections (K, N): K10's shapes in path I's calibration
+QWEN3_PROJ = {"q_proj": (2560, 4096), "k_proj": (2560, 1024), "v_proj": (2560, 1024),
+              "o_proj": (4096, 2560), "gate_proj": (2560, 9728), "up_proj": (2560, 9728),
+              "down_proj": (9728, 2560)}
+#: path I's served layer, q|k|v and gate|up fused: K10's four calls a layer
+QWEN3_SERVED = {"qkv_proj": (2560, 6144), "o_proj": (4096, 2560),
+                "gate_up_proj": (2560, 19456), "down_proj": (9728, 2560)}
+#: K10's rows: decode (8), the row prefill (128), the calibration propagate
+#: (512), prefill (1024); timed at decode and prefill
+W8A8_ROWS, W8A8_TIMED = (8, 128, 512, 1024), (8, 1024)
+#: (m, K, N) beyond the projections: one row, odd rows, K and N tails (K %
+#: 64 and N % 128 non-zero; K 200 and N 300 also not multiples of 16)
+W8A8_OTHER = ((1, 2560, 4096), (3, 9728, 2560), (3, 2592, 2608), (5, 200, 300),
+              (17, 1000, 136))
+#: torch._int_mm, K10's library yardstick, takes more than 16 rows
+INT_MM_MIN_ROWS = 32
+
+
+def w8a8_linear(gen, k: int, n: int, scale_dtype=torch.bfloat16):
+    from quantizers_tpu_torch.ops.linear import QuantLinear
+
+    dev = gen.device
+    w = torch.randint(-127, 128, (k, n), dtype=torch.int8, device=dev, generator=gen)
+    scale = (torch.rand((1, n), device=dev, generator=gen) * 0.004 + 0.001).to(scale_dtype)
+    return QuantLinear(kind="w8", weight=w, scale=scale,
+                       meta=(("k", k), ("n", n), ("group_size", None), ("act", "token_i8")))
+
+
+def bound_int8(nbytes: float, ops: float) -> dict:
+    """The least time the card could take for an int8 product: the larger of
+    the bytes over the memory rate and the operations over the int8 tensor
+    rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS
+    return {"bytes_ms": t_bytes * 1e3, "ops_ms": t_ops * 1e3,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def check_w8a8(gen, k: int, n: int, m: int, timed: bool, scale_dtype=torch.bfloat16,
+               out_dtype=torch.bfloat16) -> dict:
+    """K10 against its plain version at one shape, bit for bit (both sum the
+    int8 products exactly and scale as the JAX package does), twice; with
+    ``timed``, its time, device time, the plain version's, the bound and
+    torch._int_mm's device time (m padded to INT_MM_MIN_ROWS below it)."""
+    from quantizers_tpu_torch.core.numerics import dynamic_quantize_token_int8
+    from quantizers_tpu_torch.ops import kernels as K
+
+    lin = w8a8_linear(gen, k, n, scale_dtype)
+    x = (torch.randn((m, k), device=gen.device, generator=gen) * 2).bfloat16()
+    xq, sx = dynamic_quantize_token_int8(x.float())
+    before = K.w8a8_matmul.launches
+    got = K.w8a8_matmul(xq, sx, lin, out_dtype)
+    ref = K.w8a8_matmul_plain(xq, sx.reshape(-1), lin.weight, lin.scale).to(out_dtype)
+    torch.cuda.synchronize()
+    label = f"w8a8_matmul {m}x{k}x{n}"
+    err = (got.float() - ref.float()).abs().max().item()
+    check(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
+    check(bool(torch.equal(got, ref)), f"{label}: max |err| {err:.4g} against the plain version")
+    check(bool(torch.equal(K.w8a8_matmul(xq, sx, lin, out_dtype), got)),
+          f"{label}: differs from run to run")
+    check(K.w8a8_matmul.launches == before + 2, f"{label}: launches not counted")
+    K.w8a8_matmul.launches = before  # checks are not main-path launches
+    row = {"m": m, "k": k, "n": n, "scale_dtype": str(scale_dtype), "out_dtype": str(out_dtype),
+           "max_abs_err": err, "tol": 0.0,
+           "splits": K.w8a8_splits(m, k, n,
+                                   torch.cuda.get_device_properties(0).multi_processor_count)}
+    if not timed:
+        return row
+    nbytes = m * k + k * n + 4 * m + n * lin.scale.element_size() + m * n * 2
+    copies = [lin] + [dataclasses.replace(lin, weight=lin.weight.clone(), scale=lin.scale.clone())
+                      for _ in range(copies_for(k * n) - 1)]
+    wsrc = rotating(copies)
+    row["ms"] = cuda_ms(lambda: K.w8a8_matmul(xq, sx, wsrc()))
+    row["dev_ms"] = device_ms(lambda: K.w8a8_matmul(xq, sx, wsrc()))
+    K.w8a8_matmul.launches = before
+    row["plain_ms"] = cuda_ms(lambda: K.w8a8_matmul_plain(xq, sx.reshape(-1), lin.weight,
+                                                          lin.scale), iters=3, warmup=1)
+    mp = max(m, INT_MM_MIN_ROWS)
+    xp = torch.zeros((mp, k), dtype=torch.int8, device=xq.device)
+    xp[:m] = xq
+    row["library_rows"] = mp
+    row["library_ms"] = cuda_ms(lambda: torch._int_mm(xp, wsrc().weight))
+    row["library_dev_ms"] = device_ms(lambda: torch._int_mm(xp, wsrc().weight))
+    row.update(bound_int8(nbytes, 2 * m * k * n))
+    return row
+
+
+def w8a8_kernels(gen, detail) -> dict:
+    """Phase 3, K10: Qwen3-4B's seven projections and path I's fused ones
+    at W8A8_ROWS rows (timed at W8A8_TIMED), the W8A8_OTHER shapes, f32
+    scales and an f32 output once each, and x's codes at an unaligned base
+    (the wrapper copies them; the C entry refuses an unaligned pointer)."""
+    from quantizers_tpu_torch.core.numerics import dynamic_quantize_token_int8
+    from quantizers_tpu_torch.ops import _build
+    from quantizers_tpu_torch.ops import kernels as K
+
+    rows = {f"{name}@m{m}": check_w8a8(gen, k, n, m, m in W8A8_TIMED)
+            for m in W8A8_ROWS for name, (k, n) in {**QWEN3_PROJ, **QWEN3_SERVED}.items()}
+    for m, k, n in W8A8_OTHER:
+        rows[f"{m}x{k}x{n}"] = check_w8a8(gen, k, n, m, False)
+    rows["f32_scales@m8"] = check_w8a8(gen, 2560, 4096, 8, False, scale_dtype=torch.float32)
+    rows["f32_out@m512"] = check_w8a8(gen, 2560, 1024, 512, False, out_dtype=torch.float32)
+    lin = w8a8_linear(gen, 2560, 4096)
+    xq, sx = dynamic_quantize_token_int8(
+        torch.randn((8, 2560), device=gen.device, generator=gen) * 2)
+    xo = offset_view(xq)
+    before = K.w8a8_matmul.launches
+    same = bool(torch.equal(K.w8a8_matmul(xo, sx, lin), K.w8a8_matmul(xq, sx, lin)))
+    check(xo.data_ptr() % 16 != 0 and same, "w8a8_matmul: a call on an offset view differs")
+    out = torch.empty((8, 4096), dtype=torch.bfloat16, device=gen.device)
+    err = _build.load().qtt_w8a8_matmul(
+        xo.data_ptr(), lin.weight.data_ptr(), sx.data_ptr(), lin.scale.data_ptr(), out.data_ptr(),
+        None, 8, 2560, 4096, 0, 0, 1, torch.cuda.current_stream().cuda_stream)
+    check(err != 0, "w8a8_matmul: the C entry took an unaligned pointer")
+    K.w8a8_matmul.launches = before
+    rows["offset_view"] = {"offset_bytes": xo.data_ptr() % 16, "equal": same,
+                           "c_entry_refusal": _build.load().qtt_error_string(err).decode()}
+    for label, r in rows.items():
+        log(f"[kernels] w8a8 {label}: {r}")
+    detail["kernels"]["w8a8_matmul"] = rows
+    return rows
+
+
+class BatchShapes:
+    """The shapes of the batches ``do_oneshot`` makes while active (it
+    imports ``make_batches`` from ``quantizers_tpu_torch.oneshot`` when it
+    runs)."""
+
+    def __enter__(self):
+        import quantizers_tpu_torch.oneshot as O
+
+        self.mod, self.orig, self.shapes = O, O.make_batches, []
+
+        def recording(*a, **kw):
+            batches = self.orig(*a, **kw)
+            self.shapes.extend(tuple(ids.shape) for ids, _ in batches)
+            return batches
+        O.make_batches = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.make_batches = self.orig
+        return False
+
+
+class W8A8Shapes:
+    """The (m, K, N, scale dtype, activation dtype) of every call that
+    ``dispatch`` routes to K10 while active (gathered over every entry)."""
+
+    def __init__(self):
+        self.shapes = set()
+
+    def __enter__(self):
+        from quantizers_tpu_torch.ops import dispatch as D
+
+        self.mod, self.orig = D, D.w8a8_token_matmul
+
+        def recording(x, lin):
+            self.shapes.add((x.numel() // x.shape[-1], lin.in_features, lin.out_features,
+                             lin.scale.dtype, x.dtype))
+            return self.orig(x, lin)
+        D.w8a8_token_matmul = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.w8a8_token_matmul = self.orig
+        return False
+
+
+def calibration_launches(spec, shapes, forwards: int, matmul: str, every_m: bool) -> dict:
+    """The exact launches of a dense model's calibration: the flash kernel
+    once a no-cache forward whose shape it takes (``forwards`` a layer and
+    batch: 2 with a capture pass, the propagate alone 1), and ``matmul``
+    (the quantized linears' kernel) on the propagate forward's 7 projections
+    a layer, at every row count (``every_m``: W8A8) or up to
+    KERNEL_MAX_ROWS."""
+    from quantizers_tpu_torch.ops import flash
+    from quantizers_tpu_torch.ops.dispatch import KERNEL_MAX_ROWS
+
+    def meta(B, H, T):
+        return torch.empty((B, H, T, spec.head_dim), device="meta")
+
+    flash_batches = sum(flash.flash_reason(meta(B, spec.num_heads, T),
+                                           meta(B, spec.num_heads, T),
+                                           meta(B, spec.num_heads, T)) is None
+                        for B, T in shapes)
+    matmul_batches = sum(every_m or B * T <= KERNEL_MAX_ROWS for B, T in shapes)
+    return expect(**{"flash_attention": forwards * spec.num_layers * flash_batches,
+                     matmul: 7 * spec.num_layers * matmul_batches})
+
+
+def oneshot_awq_phase(detail, tmp: Path, bf16: Path) -> None:
+    """Path H: path F's full-depth Qwen3-4B bf16 checkpoint through
+    ``do_oneshot`` with recipe_awq_w4a16 (AWQ, W4A16 g32) on the card: the
+    stage seconds, the peak memory, 252 records, the exact K4 (capture and
+    propagate) and K1 (propagate) launches; then served (K1, K2, the int8
+    head on K3)."""
+    from quantizers_tpu_torch.models import ModelSpec
+
+    card = detail["device"]
+    spec = ModelSpec(**GEOMETRY)
+    out = tmp / "qwen3_4b_awq_w4a16"
+    with BatchShapes() as shapes:
+        run = oneshot_cli("path H", write_run_config(tmp / "run_H.yaml", bf16, "recipe_awq_w4a16"),
+                          out, tmp / "calibration_cache", card)
+    want = calibration_launches(spec, shapes.shapes, 2, "w4_matmul", every_m=False)
+    check(run["records"] == spec.num_layers * 7,
+          f"path H: {run['records']} records, want {spec.num_layers * 7}")
+    check(run["launches"] == want and want["w4_matmul"] > 0,
+          f"path H: calibration launches {run['launches']} != {want}")
+    qcfg = json.loads((out / "config.json").read_text())["quantization_config"]
+    w = qcfg["config_groups"]["group_0"]["weights"]
+    check((w["num_bits"], w["type"], w["strategy"], w["group_size"]) == (4, "int", "group", 32),
+          f"path H: the checkpoint's scheme is {w}")
+    torch.cuda.empty_cache()
+    served = serve_output("path H", out, synthetic_text(),
+                          (("decode_attention",), ("w8_matmul",), ("w4_matmul",)), card)
+    detail["path_H"] = {"device": card, "batches": shapes.shapes, "oneshot": run,
+                        "serve": served}
+    shutil.rmtree(out)
+
+
+def w8a8_per_layer(params) -> int:
+    """W8A8 linears in the first layer of a served params tree."""
+    from quantizers_tpu_torch.ops.dispatch import is_w8a8
+    from quantizers_tpu_torch.ops.linear import QuantLinear
+
+    def walk(t):
+        if isinstance(t, QuantLinear):
+            return int(is_w8a8(t))
+        return sum(walk(v) for v in t.values()) if isinstance(t, dict) else 0
+    return walk(params["layers"][0])
+
+
+def drive_w8a8(label: str, ckpt: Path, steps: int, device: str = "cuda") -> dict:
+    """The W8A8 checkpoint as ``serve`` lays it out (int8 head): an 8 x 128
+    prefill, a 1 x 128 row prefill and ``steps`` greedy decode steps, each
+    with exact launch counts: K10 on every W8A8 linear (q|k|v and gate|up
+    fused: 4 a layer) at every row count, K3 for the head up to
+    KERNEL_MAX_ROWS rows, K2 a layer at decode."""
+    from quantizers_tpu_torch.models import KVCache
+    from quantizers_tpu_torch.models.loader import load_compressed_model
+    from quantizers_tpu_torch.ops import kernels as K
+    from quantizers_tpu_torch.serve import prefill, serving_layout
+    from quantizers_tpu_torch.serve.engine import _decode_scan
+
+    spec, params = load_compressed_model(ckpt, device=device)
+    params = serving_layout(spec, params, head_bits=8, device=device)
+    L, per = spec.num_layers, w8a8_per_layer(params)
+    check(per == 4, f"{label}: {per} W8A8 linears a served layer, want 4 (q|k|v, o, gate|up, down)")
+    ids = ((torch.arange(BATCH * PREFILL, device=device).reshape(BATCH, PREFILL) * 89 + 3)
+           % spec.vocab_size)
+    res = {"layers": L, "w8a8_linears_per_layer": per}
+    for name, rows in (("row_prefill", 1), ("prefill", BATCH)):
+        caches = KVCache.init(spec, rows, MAX_LEN, device=device)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        last, caches = prefill(params, spec, ids[:rows], caches)
+        torch.cuda.synchronize()
+        res[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3
+        want = expect(w8a8_matmul=per * L, w8_matmul=int(rows * PREFILL <= 512))
+        got = K.launch_counts()
+        check(got == want, f"{label}: {name} launches {got} != {want}")
+        res[f"{name}_launches"] = {k: v for k, v in got.items() if v}
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, _ = _decode_scan(params, spec, caches, last.argmax(-1), None, steps=steps,
+                           temperature=0.0, top_k=0)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / steps
+    got = K.launch_counts()
+    want = expect(w8a8_matmul=per * L * steps, decode_attention=L * steps, w8_matmul=steps)
+    check(got == want, f"{label}: decode launches {got} != {want}")
+    check(bool(((toks >= 0) & (toks < spec.vocab_size)).all()), f"{label}: ids out of range")
+    res.update(steps=steps, ms_per_step=dt * 1e3,
+               launches_per_step={k: v // steps for k, v in got.items() if v},
+               decode_launches=got)
+    prof = device_profile(lambda: _decode_scan(params, spec, caches, toks[:, -1], None,
+                                               steps=steps, temperature=0.0, top_k=0), steps)
+    res.update({k: prof[k] for k in ("device_busy_ms_per_step", "idle_share", "top")})
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def oneshot_w8a8_phase(detail, tmp: Path, bf16: Path) -> dict:
+    """Path I: the same checkpoint through ``do_oneshot`` with
+    recipe_w8a8_int8 (RTN int8 per channel, dynamic per-token int8
+    activations): K10 on every propagate matmul and K4 in the exact counts;
+    then ``cli/serve.main`` (K10, K2, K3) and the exact per-step drive;
+    last, K10 against its plain version, bit for bit, at every shape and
+    type the path gave it."""
+    from quantizers_tpu_torch.models import ModelSpec
+
+    card = detail["device"]
+    spec = ModelSpec(**GEOMETRY)
+    out = tmp / "qwen3_4b_w8a8"
+    with W8A8Shapes() as k10, BatchShapes() as shapes:
+        run = oneshot_cli("path I", write_run_config(tmp / "run_I.yaml", bf16, "recipe_w8a8_int8"),
+                          out, tmp / "calibration_cache", card)
+    want = calibration_launches(spec, shapes.shapes, 1, "w8a8_matmul", every_m=True)
+    check(run["records"] == spec.num_layers * 7,
+          f"path I: {run['records']} records, want {spec.num_layers * 7}")
+    check(run["launches"] == want, f"path I: calibration launches {run['launches']} != {want}")
+    qcfg = json.loads((out / "config.json").read_text())["quantization_config"]
+    act = qcfg["config_groups"]["group_0"]["input_activations"]
+    check((act["num_bits"], act["strategy"], act["dynamic"]) == (8, "token", True),
+          f"path I: the checkpoint's activations are {act}")
+    torch.cuda.empty_cache()
+    with k10:
+        served = serve_output("path I", out, synthetic_text(),
+                              (("decode_attention",), ("w8_matmul",), ("w8a8_matmul",)), card)
+        drive = drive_w8a8("path I", out, SIDE_STEPS)
+    log(f"[path I drive] ({card}) {drive}")
+    shutil.rmtree(out)
+    gen = torch.Generator(device="cuda").manual_seed(F_SEED)
+    held = {f"{m}x{k}x{n} {sdt} {adt}": check_w8a8(gen, k, n, m, False, sdt, adt)["max_abs_err"]
+            for m, k, n, sdt, adt in sorted(k10.shapes, key=str)}
+    check({(m, k) for m, k, _, _, _ in k10.shapes} >= {(8, 2560), (128, 2560), (1024, 2560)},
+          f"path I: K10's shapes {sorted(held)} lack the drive's")
+    log(f"[path I] K10 bit for bit at the path's {len(held)} shapes: {sorted(held)}")
+    detail["path_I"] = {"device": card, "batches": shapes.shapes, "oneshot": run,
+                        "serve": served, "drive": drive, "k10_shapes_held": sorted(held)}
+    return drive
+
+
+#: phase 21, card against CPU. The two devices' calibration activations
+#: agree only until the first attention (the card's K4 and cuBLAS round bf16
+#: activations other than the CPU's plain path: 3% of layer 0's o_proj inputs
+#: an ulp or more apart, most of layer 1's, on an H100), and AWQ's loss
+#: moves by up to 1e-3 of itself when a scale moves by an ulp (a group's
+#: absmax code sits on its rounding tie), by up to 1.8e-2 on activations an
+#: ulp apart. So: where both devices see the same activations
+#: (layer 0's first mapping, the normed embeddings), x_mean within
+#: XMEAN_RTOL (f32 sums in another order) and SmoothQuant's codes equal;
+#: every AWQ pick equal or within AWQ_TIE_RTOL of the CPU's least loss (the
+#: picks were all equal on an H100); AWQ's codes within one step in the
+#: layers before any pick differs, at most AWQ_CODE_SHARE of them apart: of
+#: layer 0's (where only the attention's output differs; 0.022% and 0.017%
+#: on an H100), of a later layer's (its inputs mostly an ulp apart; 0.37%);
+#: and the CPU's quantized model on the card (K1 or K10) against the CPU's
+#: plain path within LOGIT_RTOL (W8A8_LOGIT_RTOL for K10).
+XMEAN_RTOL, AWQ_TIE_RTOL, AWQ_CODE_SHARE = 1e-6, 1e-5, (1e-3, 8e-3)
+#: the W8A8 model's forward on one set of weights: where the two devices'
+#: bf16 activations differ by an ulp, a dynamic int8 activation code moves
+#: by a whole step (1/127.5 of its row's absmax), so its logits move by
+#: 3.0% of the largest |logit| (error norm 3.1% on an H100) against the
+#: W4A16 model's 0.8%. The limits are twice that, and a greedy token may
+#: differ where the CPU's top two logits lie within the same fraction. The
+#: card's forward with K10's plain version in its place gives the same
+#: logits to the bit (checked): the error is the activations', not K10's
+W8A8_LOGIT_RTOL = 6e-2
+
+
+@contextlib.contextmanager
+def awq_searches():
+    """Every AWQ search of the port while active, in order: x_mean, the
+    losses of the candidate scales, the scale."""
+    from quantizers_tpu_torch.oneshot import awq
+
+    log_, losses_fn, scale_fn = [], awq._search_losses, awq._search_scale
+
+    def losses(*a, **kw):
+        out = losses_fn(*a, **kw)
+        log_[-1]["losses"] = out.double().cpu().numpy()
+        return out
+
+    def scale(x_rows, x_mean, *a, **kw):
+        log_.append({"x_mean": np.asarray(x_mean, np.float32)})
+        log_[-1]["scale"] = s = scale_fn(x_rows, x_mean, *a, **kw)
+        return s
+    awq._search_losses, awq._search_scale = losses, scale
+    try:
+        yield log_
+    finally:
+        awq._search_losses, awq._search_scale = losses_fn, scale_fn
+
+
+def logits_apart(got: torch.Tensor, ref: torch.Tensor) -> dict:
+    """How far ``got``'s logits lie from ``ref``'s (reported, not checked)."""
+    d = got - ref
+    return {"max_abs_err": d.abs().max().item(), "max_abs_logit": ref.abs().max().item(),
+            "max_rel_norm_err": (d.norm(dim=-1) / ref.norm(dim=-1)).max().item()}
+
+
+def searches_agree(label: str, got: list, ref: list, layers: int, same_first: bool) -> dict:
+    """The card's AWQ searches against the CPU's (``ref``), in order, with
+    ``same_first`` where both devices' first mapping sees the same
+    activations (its smooth layer is layer 0's input norm); returns the
+    first layer with a pick that differs (``first_layer_apart``, None:
+    none) and the largest differences."""
+    check(len(got) == len(ref) and ref and len(ref) % layers == 0,
+          f"{label}: searches {len(got)} / {len(ref)}")
+    per_layer = len(ref) // layers
+    picks, gaps, xmean, loss_err, first = [], [], [], 0.0, None
+    for i, (g, r) in enumerate(zip(got, ref)):
+        bg, br = int(np.argmin(g["losses"])), int(np.argmin(r["losses"]))
+        picks.append([br, bg])
+        gaps.append(float((r["losses"][bg] - r["losses"][br]) / r["losses"][br]))
+        xmean.append(float(np.max(np.abs(g["x_mean"] - r["x_mean"]) / np.abs(r["x_mean"]))))
+        loss_err = max(loss_err, float(np.max(np.abs(g["losses"] - r["losses"]) / r["losses"])))
+        if bg != br and first is None:
+            first = i // per_layer
+    row = {"mappings": len(ref), "picks_cpu_card": picks,
+           "picks_differing": sum(a != b for a, b in picks), "worst_tie_gap": max(gaps),
+           "tie_rtol": AWQ_TIE_RTOL, "x_mean_rel_err": xmean, "x_mean_rtol_first": XMEAN_RTOL,
+           "max_loss_rel_err": loss_err, "first_layer_apart": first}
+    check(max(gaps) <= AWQ_TIE_RTOL, f"{label}: a pick differs by {max(gaps):.3g} of the loss")
+    check(not same_first or xmean[0] <= XMEAN_RTOL,
+          f"{label}: layer 0's first x_mean differs by {xmean[0]:.3g}")
+    return row
+
+
+def int_codes_agree(label: str, got: dict, ref: dict, n_records: int, exact=(),
+                    one_step=lambda key: True, share=lambda layer: 1.0) -> dict:
+    """Integer codes of the card's records against the CPU's: equal for the
+    keys in ``exact``, within one step where ``one_step(key)``, at most
+    ``share(layer)`` of a layer's apart; the counts apart (in all and by
+    layer) and the scales' largest relative error."""
+    check(sorted(got) == sorted(ref) and len(got) == n_records,
+          f"{label}: records {len(got)} / {len(ref)}, want {n_records}")
+    cells = differing = steps = 0
+    scale_err, by_layer = 0.0, {}
+    for k, qt in got.items():
+        d = (qt.values.int() - ref[k].values.int()).abs()
+        cells, differing = cells + d.numel(), differing + int((d > 0).sum())
+        layer = by_layer.setdefault(int(k.split(".")[2]), [0, 0])
+        layer[0], layer[1] = layer[0] + int((d > 0).sum()), layer[1] + d.numel()
+        steps = max(steps, int(d.max()))
+        a, b = qt.scale.float(), ref[k].scale.float()
+        scale_err = max(scale_err, ((a - b).abs() / b.abs()).max().item())
+        check(k not in exact or (int(d.max()) == 0 and torch.equal(a, b)),
+              f"{label}: {k} differs where both devices saw the same activations")
+        check(not one_step(k) or int(d.max()) <= 1, f"{label}: {k} codes {int(d.max())} steps apart")
+    for i, (a, b) in sorted(by_layer.items()):
+        check(a <= share(i) * b, f"{label}: layer {i}: {a} of {b} codes apart, over {share(i)}")
+    return {"records": len(got), "cells": cells, "differing": differing,
+            "share": differing / cells,
+            "share_by_layer": {i: a / b for i, (a, b) in sorted(by_layer.items())},
+            "share_max_by_layer": {i: share(i) for i in sorted(by_layer)},
+            "max_steps": steps, "max_scale_rel_err": scale_err, "exact": sorted(exact)}
+
+
+def card_vs_cpu_slice7(detail, tmp: Path, dense: Path, moe: Path,
+                       devices=("cuda", "cpu")) -> None:
+    """Phase 21: ``oneshot`` on both devices over phase 18's calibration
+    batches: recipe_awq_w4a16 and SmoothQuant + recipe_w8a8_int8 on the
+    first 2 layers of path F's model, recipe_minimax_experts_only_awq on the
+    first layer of path G's: the searches and the codes; then the CPU's
+    quantized model on the card (K1, K10) against the CPU's plain path, and
+    the two devices' own quantized models' logits (reported)."""
+    import yaml
+
+    from quantizers_tpu_torch.data import ByteTokenizer, CalibrationSet, CalibrationSetConfig
+    from quantizers_tpu_torch.oneshot import make_batches
+
+    cfg = CalibrationSetConfig.from_file(str(QUICK_SET))
+    cache = str(tmp / "calibration_cache")
+    with contextlib.chdir(ROOT):
+        calib = (CalibrationSet.from_cache(cfg, cache) if CalibrationSet.is_cached(cfg, cache)
+                 else CalibrationSet.from_config(cfg, cache))
+        rows = [r["input_ids"] for r in calib.get_tokenized(ByteTokenizer())]
+    batches = make_batches(rows[:8], max_seq_length=256, batch_size=4)[:2]
+    ids = batches[-1][0][:1]
+    # the experts-only AWQ searches all 128 experts at full width: one row
+    # keeps its CPU side's loss products small
+    one_row = make_batches(rows[:1], max_seq_length=256, batch_size=1)
+    sq_w8a8 = yaml.safe_load((ROOT / "configs" / "recipes" / "recipe_w8a8_int8.yaml").read_text())
+    mods = sq_w8a8["quant_stage"]["quant_modifiers"]
+    sq_w8a8["quant_stage"]["quant_modifiers"] = {
+        "SmoothQuantModifier": {"smoothing_strength": 0.5}, **mods}
+    row = {"device": detail["device"], "batches": [list(b[0].shape) for b in batches]}
+    detail["card_vs_cpu_slice7"] = row
+    E = MOE_GEOMETRY["num_experts"]
+    # layer 0 q and k: folded once, by the first mapping (v is folded again by
+    # the v -> o mapping, whose activations differ)
+    qk0 = ("model.layers.0.self_attn.q_proj", "model.layers.0.self_attn.k_proj")
+    # (label, recipe name, recipe override, checkpoint, layers, records a
+    # layer, batches, the cross forward's kernel)
+    cases = (("awq_w4a16", "recipe_awq_w4a16", None, dense, 2, 7, batches, "w4_matmul"),
+             ("smoothquant_w8a8", "recipe_w8a8_int8", sq_w8a8, dense, 2, 7, batches,
+              "w8a8_matmul"),
+             ("minimax_experts_only_awq", "recipe_minimax_experts_only_awq", None, moe, 1, 3 * E,
+              one_row, "w4_matmul"))
+    for name, recipe_name, recipe, ckpt, layers, per_layer, bs, kernel in cases:
+        label = f"card vs CPU {name}"
+        with awq_searches() as searches:
+            res = engine_on_both(ckpt, recipe_name, bs, ids, devices, recipe=recipe, cross=True,
+                                 plain_k10=kernel == "w8a8_matmul")
+        got, ref = (res[d] for d in devices)
+        r = {"layers": layers, "seconds": {d: res[d]["s"] for d in devices},
+             "flash_launches_card": got["flash"], "cross_launches_card": got["cross_launches"]}
+        if searches:  # AWQ: the CPU searched first
+            half = len(searches) // 2
+            r["awq"] = searches_agree(label, searches[half:], searches[:half], layers,
+                                      same_first=recipe_name == "recipe_awq_w4a16")
+            first = r["awq"]["first_layer_apart"]
+            r["codes"] = int_codes_agree(
+                label, got["records"], ref["records"], layers * per_layer,
+                one_step=lambda k: first is None or int(k.split(".")[2]) < first,
+                share=lambda layer: AWQ_CODE_SHARE[min(layer, 1)])
+        else:  # SmoothQuant: layer 0's q and k fold saw the same activations
+            r["codes"] = int_codes_agree(label, got["records"], ref["records"],
+                                         layers * per_layer, exact=qk0,
+                                         one_step=lambda k: False)
+        check(got["flash"] > 0, f"{label}: the flash kernel never ran in calibration")
+        check(got["cross_launches"][kernel] > 0, f"{label}: the card's forward never ran {kernel}")
+        r.update(routes_agree(label, got["cross_routes"], ref["routes"]))
+        lim = (dict(rtol=W8A8_LOGIT_RTOL, norm_rtol=W8A8_LOGIT_RTOL, tie_rtol=W8A8_LOGIT_RTOL)
+               if kernel == "w8a8_matmul" else {})
+        r["logits"] = logits_agree(label, got["cross_logits"], ref["logits"], **lim)
+        if "cross_plain_k10_logits" in got:
+            r["logits_k10_plain"] = logits_apart(got["cross_plain_k10_logits"], ref["logits"])
+            check(torch.equal(got["cross_plain_k10_logits"], got["cross_logits"]),
+                  f"{label}: the card's logits with K10's plain version differ from K10's")
+        r["own_models_logits"] = logits_apart(got["logits"], ref["logits"])
+        row[name] = r
+        log(f"[{label}] {r}")
+        del res, got, ref
+
+
+def oneshot_phases(detail) -> dict:
+    """Phases 16-21: paths F and G (slice 6 and the RTN oneshot engine), H
+    and I (AWQ and W8A8 on F's bf16 checkpoint), from bf16 checkpoints to
+    served compressed ones, and the engine card against CPU;
+    ``detail["device"]`` holds the card's nvidia-smi line. The checkpoints,
+    the calibration cache and HF's caches live in a temporary directory,
+    removed at the end; nothing is fetched. Returns path I's drive."""
     for var in ("HF_DATASETS_OFFLINE", "HF_HUB_OFFLINE", "TRANSFORMERS_OFFLINE"):
         os.environ[var] = "1"
     with tempfile.TemporaryDirectory(prefix="chip_smoke_oneshot_") as tmp:
         os.environ["HF_HOME"] = str(Path(tmp) / "hf_home")
-        two = oneshot_dense_phase(detail, Path(tmp))
+        bf16, two = oneshot_dense_phase(detail, Path(tmp))
+        oneshot_awq_phase(detail, Path(tmp), bf16)
+        drive = oneshot_w8a8_phase(detail, Path(tmp), bf16)
+        shutil.rmtree(bf16)
         one = oneshot_moe_phase(detail, Path(tmp))
         card_vs_cpu_oneshot(detail, Path(tmp), two, one)
+        card_vs_cpu_slice7(detail, Path(tmp), two, one)
+    return drive
 
 
 # ---------------------------------------------------------------------------
@@ -2886,28 +3490,38 @@ def main() -> int:
     fl = flash_kernels(gen, detail)
     s5 = slice5_kernels(gen, detail)
     offset_views(gen, detail)
+    w8a8_rows = w8a8_kernels(gen, detail)
+    phase_s = detail["phase_s"] = {"kernels": time.perf_counter() - t_start}
+
+    def lap(name: str) -> None:
+        phase_s[name] = time.perf_counter() - t_start - sum(phase_s.values())
 
     # phase 4: serve, slice 1
     spec, raw, counts = serve_phase(gen, detail)
+    lap("slice1")
 
     # phase 5: serve, slice 2, path A (the main path), and its batcher
     spec_moe, params_moe, counts_moe = serve_moe_phase(gen, detail)
     moe_batcher_phase(spec_moe, params_moe, gen, detail)
     del params_moe
     torch.cuda.empty_cache()
+    lap("path_A")
 
     # phase 6: paths B and C
     side = side_paths_phase(gen, detail)
     torch.cuda.empty_cache()
+    lap("paths_B_C")
 
     # phase 7: card against CPU
     card_vs_cpu(detail)
     card_vs_cpu_moe(detail)
+    lap("card_vs_cpu")
 
     # phase 8: batcher, slice 1
     batcher_phase(spec, raw, gen, detail)
     del raw
     torch.cuda.empty_cache()
+    lap("batcher")
 
     # phases 9-11: path D (slice 3's main path), its serve run, card against
     # CPU; the checkpoints live in a temporary directory, removed at the end
@@ -2916,6 +3530,7 @@ def main() -> int:
         serve_cli_phase(ckpt, text, detail)
         torch.cuda.empty_cache()
         card_vs_cpu_ppl(gen, detail, Path(tmp), text)
+    lap("path_D")
 
     # phases 12-14: path E (slice 5's main path), its batcher, card against CPU
     spec_e, params_e, counts_e = serve_mla_phase(gen, detail)
@@ -2923,9 +3538,11 @@ def main() -> int:
     del params_e
     torch.cuda.empty_cache()
     card_vs_cpu_mla(detail, synthetic_text())
+    lap("path_E")
 
-    # phases 16-18: paths F and G, and the engine card against CPU
-    oneshot_phases(detail)
+    # phases 16-21: paths F, H, I and G, and the engine card against CPU
+    drive_i = oneshot_phases(detail)
+    lap("oneshot")
 
     # phase 15: the kernels line (w4, the NVFP4 and the fp8 matmuls: the four
     # calls of one decoder layer at m = 8, summed)
@@ -2942,6 +3559,12 @@ def main() -> int:
         timed = [r for label, r in rows.items() if "ms" in r and label.endswith("@m8")]
         return {key: total(timed, key) for key in ("ms", "dev_ms", "plain_ms", "bound_ms",
                                                    "library_ms", "library_dev_ms")}
+
+    def served_sum(rows, m, suffix=""):
+        """K10 on path I's served layer (its four calls) at ``m`` rows, summed."""
+        timed = [rows[f"{name}@m{m}"] for name in QWEN3_SERVED]
+        return {key + suffix: total(timed, key) for key in ("ms", "dev_ms", "plain_ms", "bound_ms",
+                                                            "library_ms", "library_dev_ms")}
 
     src = "quantizers_tpu_torch/csrc/"
     w8_all = dict(w8_rows, **s2["w8_matmul_f32"])
@@ -3007,8 +3630,17 @@ def main() -> int:
          **{f"{key}_L{MAX_LEN - 1}": s5["mla_decode_attention"][f"L{MAX_LEN - 1}"][key]
             for key in ("ms", "dev_ms", "plain_ms", "bound_ms", "library_ms",
                         "library_dev_ms")}},
+        # K10: path I's served layer (q|k|v, o, gate|up, down: its four
+        # calls) at m 8 summed (a decoder layer's decode work), and at m 1024
+        {"name": "w8a8_matmul", "route": "cuda", "source": src + "w8a8_matmul.cu",
+         "replaces": "quantizers_tpu/ops/dispatch.py:49",
+         "launches": drive_i["decode_launches"]["w8a8_matmul"], "path": "I decode",
+         "max_abs_err": max(r["max_abs_err"] for r in w8a8_rows.values() if "max_abs_err" in r),
+         "tol": 0.0, **served_sum(w8a8_rows, 8), "bound_by": "bytes",
+         **served_sum(w8a8_rows, 1024, "_m1024"), "bound_by_m1024": "operations"},
     ]
     check(all(k["launches"] > 0 for k in kernels_line), "a kernel never launched on its path")
+    check(kernels_line[-1]["max_abs_err"] == 0.0, "w8a8_matmul: not bit-exact")
     detail["total_s"] = time.perf_counter() - t_start
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_detail.json").write_text(json.dumps(detail, indent=1))

@@ -20,6 +20,9 @@ from .numerics import (  # noqa: F401
     QuantizedTensor,
     compute_scale_zp,
     dequantize,
+    dynamic_quantize_group_fp8,
+    dynamic_quantize_token_fp8,
+    dynamic_quantize_token_int8,
     fake_quantize,
     minmax_along,
     quantize,

@@ -284,3 +284,50 @@ def fake_quantize(w: torch.Tensor, args: QuantizationArgs,
     """quantize -> dequantize, back in ``w``'s dtype (QDQ)."""
     qt = quantize(w, args, scale=scale, zero_point=zero_point, global_scale=global_scale)
     return dequantize(qt, args).to(w.dtype)
+
+
+# ---------------------------------------------------------------------------
+# dynamic activation quantization (the W8A8 path and the tests)
+# ---------------------------------------------------------------------------
+
+def _dynamic_scale(absmax: torch.Tensor, divisor: float) -> torch.Tensor:
+    """max(absmax, 1e-12) / divisor in absmax's dtype, then f32, as the JAX
+    package computes it; a true division by a tensor on every device."""
+    absmax = torch.clamp(absmax, min=1e-12)
+    return (absmax / torch.full_like(absmax, divisor)).float()
+
+
+def _to_fp8_saturated(q: torch.Tensor) -> torch.Tensor:
+    """Cast to float8_e4m3fn after clamping to +-448: the cast gives NaN
+    past the range on one device and may not on another, so values out of
+    range saturate on both (NaN stays NaN). The JAX package casts with no
+    clamp (ROADMAP queue 3)."""
+    return torch.clamp(q, -FP8_E4M3_MAX, FP8_E4M3_MAX).to(torch.float8_e4m3fn)
+
+
+def dynamic_quantize_token_fp8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-token dynamic FP8: x [..., d] -> (fp8 values, per-token f32 scale [..., 1])."""
+    scale = _dynamic_scale(torch.amax(torch.abs(x), dim=-1, keepdim=True), FP8_E4M3_MAX)
+    return _to_fp8_saturated(x / scale), scale
+
+
+def dynamic_quantize_group_fp8(x: torch.Tensor, group_size: int = 128
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-token-group dynamic FP8 (the FP8_BLOCK activation side): the last
+    axis zero-padded to a multiple of ``group_size``; returns the fp8 values
+    in ``x``'s shape and the f32 scales [..., groups]."""
+    d = x.shape[-1]
+    xp = _pad_axis(x, x.ndim - 1, group_size)
+    g = xp.reshape(*xp.shape[:-1], -1, group_size)
+    scale = _dynamic_scale(torch.amax(torch.abs(g), dim=-1, keepdim=True), FP8_E4M3_MAX)
+    q = _to_fp8_saturated(g / scale).reshape(xp.shape)[..., :d]
+    return q, scale.squeeze(-1)
+
+
+def dynamic_quantize_token_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-token dynamic symmetric INT8: x [..., d] -> (int8 codes, per-token
+    f32 scale [..., 1]); scale absmax / 127.5, codes rounded half away from
+    zero and clipped to [-128, 127]."""
+    scale = _dynamic_scale(torch.amax(torch.abs(x), dim=-1, keepdim=True), 127.5)
+    q = torch.clamp(_round_half_away(x / scale), -128, 127).to(torch.int8)
+    return q, scale

@@ -14,8 +14,13 @@ property GPTQ and AWQ rely on. Pipelines:
 
 The layer forwards run without a cache, so their attention goes through the
 flash kernel where it takes the shape, and their matmuls at m = B x T rows
-(above ``ops.dispatch.KERNEL_MAX_ROWS``) through dequantize-then-matmul, as
-in the JAX package.
+through the weight-only kernels up to ``ops.dispatch.KERNEL_MAX_ROWS``,
+dequantize-then-matmul above, and W8A8 linears through the int8 GEMM at any
+m, as in the JAX package. Modifiers see each layer through a
+:class:`~quantizers_tpu_torch.oneshot.modifiers.LayerCtx`; transform-only
+ones (SmoothQuant) observe every site and claim none, and every modifier's
+``pre_compress`` (AWQ's and SmoothQuant's folds) runs before any site of the
+layer is compressed.
 
 Memory model: two modes via ``offload``. In both, each record moves to
 host memory as it is made (only the save reads it).
@@ -53,26 +58,30 @@ from ..formats.checkpoint import CompressedParam
 from ..models.config import ModelSpec
 from ..models.transformer import apply_layer, embed, tree_to
 from ..recipes import ModifierSpec, Recipe
-from .modifiers import Modifier, RTNModifier, SiteResult, _to_host
+from .awq import AWQModifier
+from .modifiers import LayerCtx, Modifier, RTNModifier, SiteResult, _to_host
 from .sites import LinearSite, layer_sites, scheme_for_site
+from .smoothquant import SmoothQuantModifier
 
 logger = logging.getLogger(__name__)
 
 #: the modifiers whose algorithms are not ported yet, and the ROADMAP part
 #: (queue 1, slice 7) that brings each
-_LATER = {"GPTQModifier": "7d", "AWQModifier": "7e", "SmoothQuantModifier": "7e",
-          "AutoRoundModifier": "7f"}
+_LATER = {"GPTQModifier": "7d", "AutoRoundModifier": "7f"}
 
 
 def _build_modifier(spec: ModifierSpec) -> Modifier:
-    if spec.name == "QuantizationModifier":
-        return RTNModifier(spec)
+    table = {"QuantizationModifier": RTNModifier, "AWQModifier": AWQModifier,
+             "SmoothQuantModifier": SmoothQuantModifier}
     if spec.name in _LATER:
         raise NotImplementedError(
             f"{spec.name} is not ported yet: ROADMAP queue 1, slice {_LATER[spec.name]}; "
-            "the port runs QuantizationModifier (RTN) recipes")
-    raise ValueError(f"Unsupported modifier {spec.name!r}; "
-                     f"known: {sorted(['QuantizationModifier', *_LATER])}")
+            f"the port runs {', '.join(sorted(table))} recipes")
+    cls = table.get(spec.name)
+    if cls is None:
+        raise ValueError(f"Unsupported modifier {spec.name!r}; "
+                         f"known: {sorted([*table, *_LATER])}")
+    return cls(spec)
 
 
 @dataclasses.dataclass
@@ -261,9 +270,11 @@ def oneshot(
     hiddens: List[torch.Tensor] = []
     positions: List[torch.Tensor] = []
     masks: List[torch.Tensor] = []
+    valid_rows: List[int] = []  # host-side valid-token counts per batch
     embed_dev = {"embed": params["embed"].to(dev)}
     for ids, mask in batches:
         B, T = ids.shape
+        valid_rows.append(int(np.asarray(mask).sum()) if mask is not None else B * T)
         hiddens.append(embed(embed_dev, torch.as_tensor(np.asarray(ids), device=dev)).to(home))
         positions.append(torch.arange(T, device=home)[None, :].expand(B, T))
         masks.append(torch.as_tensor(np.asarray(mask, np.float32), device=home))
@@ -287,10 +298,16 @@ def oneshot(
             params["layers"][li] = layer
         sites = layer_sites(spec, li, layer)
 
-        # which modifier owns which site (first match in recipe order wins)
+        # which modifier owns which site (first match in recipe order wins);
+        # transform-only modifiers (SmoothQuant) observe every site but
+        # never claim one: their paired quantizer compresses
         owned: List[Tuple[Modifier, LinearSite, str, QuantScheme]] = []
+        observe_only: List[Tuple[Modifier, LinearSite, str, Optional[QuantScheme]]] = []
         taken: set = set()
         for mod in modifiers:
+            if mod.transforms_only:
+                observe_only.extend((mod, site, "", None) for site in sites)
+                continue
             for site in sites:
                 if site.prefix in taken:
                     continue
@@ -301,8 +318,9 @@ def oneshot(
                     owned.append((mod, site, gname, scheme))
                     taken.add(site.prefix)
 
-        per_mod: Dict[int, List[Tuple[LinearSite, str, QuantScheme]]] = {}
-        for mod, site, gname, scheme in owned:
+        ctx = LayerCtx(spec=spec, layer_idx=li, layer=layer, sites=sites)
+        per_mod: Dict[int, List[Tuple[LinearSite, str, Optional[QuantScheme]]]] = {}
+        for mod, site, gname, scheme in owned + observe_only:
             per_mod.setdefault(id(mod), []).append((site, gname, scheme))
         states: Dict[int, Any] = {}
         want_capture = kv_scheme is not None
@@ -310,21 +328,25 @@ def oneshot(
             matched = per_mod.get(id(mod), [])
             if not matched:
                 continue
-            states[id(mod)] = mod.begin_layer(matched)
+            states[id(mod)] = mod.begin_layer(ctx, matched)
             want_capture = want_capture or mod.wants_capture_for(matched)
 
         # ---- capture pass -------------------------------------------------
         if want_capture and batches:
             t_cap = time.time()
             kmax = vmax = None
-            for h, pos, mask in zip(hiddens, positions, masks):
+            for bi, (h, pos, mask) in enumerate(zip(hiddens, positions, masks)):
                 _, cap = _capture_layer(layer, spec, li, h.to(dev), pos.to(dev),
                                         moe_calibrate_all_experts)
-                # the shared-input map, for modifiers that keep one
-                # statistic per distinct input
+                # the batch's ordinal (modifiers that observe one shared
+                # input for several sites take it once a batch), the
+                # shared-input map and the host-side valid-token count: none
+                # of them waits on the device
+                cap["_batch_idx"] = bi
                 cap["_aliases"] = _capture_alias_map(cap)
+                cap["_valid_rows"] = valid_rows[bi]
                 mask_dev = mask.to(dev)
-                for mod, site, gname, scheme in owned:
+                for mod, site, gname, scheme in observe_only + owned:
                     x_in = cap.get(site.capture_key)
                     if x_in is not None:
                         mod.observe(states[id(mod)], site, x_in, mask_dev, cap)
@@ -338,8 +360,12 @@ def oneshot(
             _sync(dev)
             stage_s["capture_s"] += time.time() - t_cap
 
-        # ---- compress ------------------------------------------------------
+        # ---- layer-level transforms (AWQ, SmoothQuant), then compress ------
         t_solve = time.time()
+        for mod in modifiers:
+            matched = per_mod.get(id(mod), [])
+            if matched:
+                mod.pre_compress(states[id(mod)], ctx, matched)
         for mod, site, gname, scheme in owned:
             res: SiteResult = mod.compress(states[id(mod)], site, gname, scheme)
             site.set(res.new_linear)

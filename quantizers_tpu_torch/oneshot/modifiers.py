@@ -4,8 +4,9 @@ Counterpart of ``quantizers_tpu/oneshot/modifiers.py``. A modifier
 transforms one layer's weights given (optionally) captured activations.
 The engine drives it layer by layer:
 
-    state = modifier.begin_layer(...)
+    state = modifier.begin_layer(ctx, matched)
     for batch: modifier.observe(state, site, x_in, mask, capture)   # if it captures
+    modifier.pre_compress(state, ctx, matched)   # layer-level transforms (AWQ)
     modifier.compress(state, site, group, scheme) -> SiteResult
 
 RTN is the reference's ``QuantizationModifier`` (used data-free in
@@ -123,17 +124,32 @@ def needs_static_act(scheme: QuantScheme) -> bool:
     return a is not None and not a.dynamic
 
 
+@dataclasses.dataclass
+class LayerCtx:
+    """Everything a modifier may need about the layer being compressed."""
+
+    spec: Any  # ModelSpec
+    layer_idx: int
+    layer: Dict[str, Any]
+    sites: List[LinearSite]
+
+
 class Modifier:
     """Base modifier. Subclasses override the hooks they need."""
 
     name = "Modifier"
     needs_capture = False
+    #: transform-only modifiers (SmoothQuant) fold scales into weights but
+    #: never claim sites for compression: a paired quantization modifier
+    #: owns that
+    transforms_only = False
 
     def __init__(self, spec: ModifierSpec) -> None:
         self.spec = spec
 
     # --- per-layer protocol -------------------------------------------------
-    def begin_layer(self, matched: List[Tuple[LinearSite, str, QuantScheme]]) -> Any:
+    def begin_layer(self, ctx: LayerCtx,
+                    matched: List[Tuple[LinearSite, str, QuantScheme]]) -> Any:
         """matched: (site, group_name, scheme) triples this modifier owns."""
         state: Dict[str, Any] = {"act_obs": {}}
         for site, _, scheme in matched:
@@ -150,6 +166,11 @@ class Modifier:
         obs = state["act_obs"].get(site.prefix)
         if obs is not None:
             obs.update(x_in, mask)
+
+    def pre_compress(self, state: Any, ctx: LayerCtx,
+                     matched: List[Tuple[LinearSite, str, QuantScheme]]) -> None:
+        """Layer-level weight transform before per-site quantization (AWQ
+        and SmoothQuant fold their scales here)."""
 
     def compress(self, state: Any, site: LinearSite, group: str,
                  scheme: QuantScheme) -> SiteResult:

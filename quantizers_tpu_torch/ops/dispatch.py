@@ -1,9 +1,11 @@
 """Kernel dispatch: route a quantized matmul to a CUDA kernel or to the
 dequantize-then-matmul reference path.
 
-The routing is the JAX package's (``quantizers_tpu/ops/dispatch.py``): kind
-w4, w8, nvfp4 or fp8, symmetric, a shape the kernel takes, and at most
-``KERNEL_MAX_ROWS`` activation rows. It is decided from the shapes before
+The routing is the JAX package's (``quantizers_tpu/ops/dispatch.py``): a
+W8A8 linear (per-channel int8 with dynamic per-token int8 activations) to
+the int8 GEMM at any row count; otherwise kind w4, w8, nvfp4 or fp8,
+symmetric, a shape the kernel takes, and at most ``KERNEL_MAX_ROWS``
+activation rows. It is decided from the shapes before
 any launch. A CUDA tensor that qualifies goes to the kernel, and a build or
 launch failure raises; a CPU tensor that qualifies goes to the kernel's
 plain PyTorch version inside the same wrapper.
@@ -15,6 +17,7 @@ from typing import Optional
 
 import torch
 
+from ..core.numerics import dynamic_quantize_token_int8
 from . import kernels
 from .linear import QuantLinear
 
@@ -42,6 +45,26 @@ def reference_quant_matmul(x: torch.Tensor, lin: QuantLinear) -> torch.Tensor:
     return matmul_f32acc(x, lin.dequantize(torch.bfloat16))
 
 
+def is_w8a8(lin: QuantLinear) -> bool:
+    """Does ``lin`` compute with dynamic per-token int8 activations? The
+    JAX package's test: a symmetric per-channel w8 linear whose meta records
+    ``act == "token_i8"``; group-wise w8 keeps the dequantize path."""
+    md = lin.meta_dict
+    return (lin.kind == "w8" and lin.zero_point is None and md.get("act") == "token_i8"
+            and not md.get("group_size"))
+
+
+def w8a8_token_matmul(x: torch.Tensor, lin: QuantLinear) -> torch.Tensor:
+    """The W8A8 compute path: x quantized per token to symmetric int8
+    (:func:`~quantizers_tpu_torch.core.numerics.dynamic_quantize_token_int8`
+    of ``x`` in f32), times the int8 weight, summed exactly in int32 and
+    scaled per token and per channel by the int8 GEMM kernel
+    (:func:`~quantizers_tpu_torch.ops.kernels.w8a8_matmul`), in ``x``'s
+    dtype. The JAX package's ``w8a8_token_matmul``, bit for bit."""
+    xq, sx = dynamic_quantize_token_int8(x.float())
+    return kernels.w8a8_matmul(xq, sx, lin, out_dtype=x.dtype)
+
+
 def _rows(x: torch.Tensor) -> int:
     m = 1
     for d in x.shape[:-1]:
@@ -55,10 +78,11 @@ def quant_matmul(x: torch.Tensor, lin: QuantLinear,
 
     ``use_kernel=False`` forces the reference path (for W8A8 linears the
     A16 oracle, as in the JAX package); ``None`` routes as the JAX package
-    does."""
-    if use_kernel is not False and lin.meta_dict.get("act"):
-        raise NotImplementedError(
-            "W8A8 activation quantization is not ported yet: ROADMAP queue 1, slice 7b")
+    does: a W8A8 linear to :func:`w8a8_token_matmul` at every row count
+    (the JAX package checks it before its row crossover), the others to
+    their kernel up to ``KERNEL_MAX_ROWS`` rows."""
+    if use_kernel is not False and is_w8a8(lin):
+        return w8a8_token_matmul(x, lin)
     if use_kernel is None:
         use_kernel = _rows(x) <= KERNEL_MAX_ROWS
     fn = kernels.KERNELS.get(lin.kind) if use_kernel else None

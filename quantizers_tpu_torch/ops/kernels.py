@@ -11,6 +11,10 @@ current stream and raises if the launch fails. It adds one to its
   ``_w4_matmul_2d`` and ``_w4i_matmul_2d`` (W4A16, group scales);
 * :func:`w8_matmul` replaces ``_w8_matmul_2d`` (int8, channel or group,
   bf16 or f32 scales);
+* :func:`w8a8_matmul` replaces no Pallas kernel: the XLA int8
+  ``dot_general`` of ``quantizers_tpu/ops/dispatch.py`` ``w8a8_token_matmul``
+  (int8 activations and weights, int32 sums, per-token and per-channel
+  scales);
 * :func:`decode_attention` replaces ``_decode_attention_call`` (one-token
   GQA attention with the new K/V row written into the cache in place);
 * :func:`nvfp4_matmul` replaces ``_nvfp4_matmul_2d`` (packed E2M1 codes)
@@ -35,6 +39,7 @@ built at the first launch.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -187,6 +192,87 @@ def _launch_matmul(entry: str, wrapper: Callable, x2: torch.Tensor, lin: QuantLi
     _build.check(err, entry)
     wrapper.launches += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# W8A8: int8 activations (M, K) x int8 weights (K, N), int32 sums, per-token
+# and per-channel f32 scales
+# ---------------------------------------------------------------------------
+
+#: K10's block tile (csrc/w8a8_matmul.cu): output rows, output columns, K step
+W8A8_TILE = (64, 128, 64)
+
+
+def _w8a8_reason(lin: QuantLinear) -> Optional[str]:
+    if lin.kind != "w8" or lin.zero_point is not None or lin.meta_dict.get("group_size"):
+        return "w8a8 kernel takes symmetric per-channel int8 linears"
+    if (lin.weight.dtype != torch.int8 or lin.scale.dtype not in (torch.bfloat16, torch.float32)
+            or lin.scale.numel() != lin.out_features):
+        return "w8a8 kernel takes int8 (K, N) weights with bf16 or f32 (1, N) scales"
+    return None
+
+
+def w8a8_matmul_plain(xq: torch.Tensor, sx: torch.Tensor, w8: torch.Tensor,
+                      sw: torch.Tensor) -> torch.Tensor:
+    """K10's arithmetic in PyTorch, f32 out: the int8 products summed
+    exactly (both operands widened to float64, exact for every |sum| <
+    2^53; neither device has an integer ``matmul``), the sum rounded to f32,
+    then times the row's scale and the column's, in that order.
+    xq (M, K), sx (M,) -> (M, N)."""
+    acc = torch.matmul(xq.double(), w8.double()).float()
+    return (acc * sx.reshape(-1, 1).float()) * sw.reshape(1, -1).float()
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def w8a8_splits(m: int, k: int, n: int, sms: int) -> int:
+    """How many blocks of one output tile split K: enough for two blocks
+    an SM where the output tiles alone are fewer, each with at least two
+    K steps."""
+    bm, bn, bk = W8A8_TILE
+    tiles = -(-m // bm) * -(-n // bn)
+    steps = -(-k // bk)
+    return max(1, min(steps // 2, -(-2 * sms // tiles)))
+
+
+@_count
+def w8a8_matmul(xq: torch.Tensor, sx: torch.Tensor, lin: QuantLinear,
+                out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """int8 activations ``xq`` (..., K) with their per-row f32 scales ``sx``
+    (..., 1) times a symmetric per-channel int8 linear -> (..., N) in
+    ``out_dtype``: the JAX package's ``w8a8_token_matmul`` after its
+    quantizer."""
+    reason = _w8a8_reason(lin)
+    if reason:
+        raise KernelUnsupported(reason)
+    k, n = lin.in_features, lin.out_features
+    lead = tuple(xq.shape[:-1])
+    x2 = aligned16(xq.reshape(-1, k).contiguous())
+    s2 = sx.reshape(-1).float().contiguous()
+    m = x2.shape[0]
+    if x2.device.type == "cpu":
+        return w8a8_matmul_plain(x2, s2, lin.weight, lin.scale).to(out_dtype).reshape(*lead, n)
+    if not x2.is_cuda:
+        raise ValueError(f"w8a8_matmul: no kernel for device {x2.device}")
+    sw = lin.scale.reshape(-1)
+    _check_cuda("w8a8_matmul", x2, s2, lin.weight, sw)
+    if x2.dtype != torch.int8 or s2.shape[0] != m:
+        raise ValueError("w8a8_matmul: int8 activations with one scale a row")
+    lib = _build.load()
+    direct = out_dtype in (torch.bfloat16, torch.float32)
+    out = torch.empty((m, n), dtype=out_dtype if direct else torch.float32, device=x2.device)
+    splits = w8a8_splits(m, k, n, _sm_count(x2.device.index or 0))
+    ws = torch.zeros((m, n), dtype=torch.int32, device=x2.device) if splits > 1 else None
+    err = lib.qtt_w8a8_matmul(x2.data_ptr(), lin.weight.data_ptr(), s2.data_ptr(), sw.data_ptr(),
+                              out.data_ptr(), None if ws is None else ws.data_ptr(), m, k, n,
+                              int(sw.dtype == torch.float32), int(out.dtype == torch.float32),
+                              splits, _stream(x2.device))
+    _build.check(err, "w8a8_matmul")
+    w8a8_matmul.launches += 1
+    return out.to(out_dtype).reshape(*lead, n)
 
 
 # ---------------------------------------------------------------------------
@@ -650,7 +736,7 @@ def moe_slot_gu_ffn(x: torch.Tensor, idx: torch.Tensor, gu_el, down_el) -> torch
 
 ALL_KERNELS = (w4_matmul, w8_matmul, decode_attention, nvfp4_matmul, nvfp4_i8_matmul,
                moe_slot_ffn, moe_slot_gu_ffn, flash_attention, fp8_matmul,
-               mla_decode_attention)
+               mla_decode_attention, w8a8_matmul)
 
 
 def reset_launch_counts() -> None:

@@ -231,8 +231,8 @@ def dense_linear(weight_nk: Any, bias: Optional[Any] = None, device=None,
 def _act_meta(act_args: Optional[QuantizationArgs]) -> Tuple[Tuple[str, Any], ...]:
     """The meta entry recording a scheme's input-activation quantization,
     where the JAX package records one: dynamic per-token symmetric INT8 (the
-    W8A8 preset). Its compute path is not ported yet, so :func:`quant_matmul`
-    refuses such a linear rather than serving it as W8A16."""
+    W8A8 preset), which :func:`~quantizers_tpu_torch.ops.dispatch.quant_matmul`
+    serves through the int8 GEMM (``dispatch.w8a8_token_matmul``)."""
     if (act_args is not None and act_args.dynamic and act_args.symmetric
             and act_args.type == QuantType.INT and act_args.num_bits == 8
             and act_args.strategy == QuantStrategy.TOKEN):

@@ -20,7 +20,10 @@ in the plain version);
 for the MLA decode kernel 2e-2 of each (row, head)'s largest |value| (p is
 rounded to bf16 on both sides, after f32 sums in another order), its cache
 rows exactly. The matmul, slot, flash and both decode-attention kernels
-sum in a fixed order, so a second call gives the same bits.
+sum in a fixed order, so a second call gives the same bits. The W8A8 int8
+GEMM (K10) sums its int8 products exactly, so it equals its plain version
+(float64 sums, exact below 2^53) bit for bit, as do the dynamic activation
+quantizers on the card and on the CPU.
 """
 
 import math
@@ -1054,3 +1057,146 @@ def test_oneshot_records_leave_the_card(gen, tmp_path, recipe):
     assert sorted(files["cuda"]) == sorted(files["cpu"]) and files["cpu"]
     for k, v in files["cpu"].items():
         assert torch.equal(files["cuda"][k].view(torch.uint8), v.view(torch.uint8)), k
+
+
+# ---------------------------------------------------------------------------
+# K10, the W8A8 int8 GEMM, and the dynamic activation quantizers
+# ---------------------------------------------------------------------------
+
+def _w8a8(gen, k, n, sdt=torch.bfloat16):
+    return QuantLinear(
+        kind="w8",
+        weight=torch.randint(-128, 128, (k, n), dtype=torch.int8, device="cuda", generator=gen),
+        scale=(torch.rand((1, n), device="cuda", generator=gen) * 0.004 + 0.001).to(sdt),
+        meta=(("k", k), ("n", n), ("group_size", None), ("act", "token_i8")))
+
+
+def _codes(gen, m, k):
+    xq = torch.randint(-128, 128, (m, k), dtype=torch.int8, device="cuda", generator=gen)
+    return xq, torch.rand((m, 1), device="cuda", generator=gen) * 0.02 + 1e-3
+
+
+def _w8a8_plain(xq, sx, lin, out_dtype=torch.bfloat16):
+    return K.w8a8_matmul_plain(xq.reshape(-1, xq.shape[-1]), sx.reshape(-1), lin.weight,
+                               lin.scale).to(out_dtype)
+
+
+#: Qwen3-4B's seven projections, and the q|k|v and gate|up ones that
+#: serving fuses, at decode, the row prefill, the calibration propagate and
+#: prefill; one row, odd rows, K and N tails (past 64 and 128, and not
+#: multiples of 16), tiles of one block and sizes under a tile
+W8A8_QWEN3 = [(m, k, n) for m in (8, 128, 512, 1024)
+              for k, n in ((2560, 4096), (2560, 1024), (4096, 2560), (2560, 9728), (9728, 2560),
+                           (2560, 6144), (2560, 19456))]
+W8A8_SHAPES = W8A8_QWEN3 + [(1, 2560, 4096), (3, 9728, 2560), (3, 2592, 2608), (5, 200, 300),
+                            (17, 1000, 136), (64, 128, 128), (65, 64, 8), (1, 16, 16),
+                            (129, 520, 264)]
+
+
+@pytest.mark.parametrize("m,k,n", W8A8_SHAPES)
+def test_w8a8_kernel_matches_plain_bit_for_bit(gen, m, k, n):
+    lin = _w8a8(gen, k, n)
+    xq, sx = _codes(gen, m, k)
+    before = K.w8a8_matmul.launches
+    got = K.w8a8_matmul(xq, sx, lin)
+    assert K.w8a8_matmul.launches == before + 1
+    ref = _w8a8_plain(xq, sx, lin)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref), (got.float() - ref.float()).abs().max().item()
+    assert torch.equal(K.w8a8_matmul(xq, sx, lin), got)
+
+
+@pytest.mark.parametrize("sdt,odt", [(torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32),
+                                     (torch.float32, torch.float32), (torch.bfloat16, torch.float16)])
+def test_w8a8_kernel_scale_and_output_types(gen, sdt, odt):
+    lin = _w8a8(gen, 2560, 1024, sdt)
+    for m in (8, 512):
+        xq, sx = _codes(gen, m, 2560)
+        got = K.w8a8_matmul(xq, sx, lin, out_dtype=odt)
+        assert got.dtype == odt
+        assert torch.equal(got, _w8a8_plain(xq, sx, lin, odt))
+
+
+def test_w8a8_kernel_sums_past_2_24_round_once(gen):
+    """Every product at 127 x -128 (and -128 x -128) over K 9728: |sum| up to
+    9728 * 2^14 = 1.6e8, past f32's 2^24, rounded once to the nearest even
+    f32, as the int64 sum is."""
+    k, n, m = 9728, 256, 4
+    w = torch.full((k, n), -128, dtype=torch.int8, device="cuda")
+    w[:, 1::2] = 127
+    lin = QuantLinear(kind="w8", weight=w, scale=torch.ones((1, n), dtype=torch.float32,
+                                                            device="cuda"),
+                      meta=(("k", k), ("n", n), ("group_size", None), ("act", "token_i8")))
+    xq = torch.full((m, k), 127, dtype=torch.int8, device="cuda")
+    xq[1] = -128
+    xq[2, ::3] = -128
+    sx = torch.ones((m, 1), device="cuda")
+    got = K.w8a8_matmul(xq, sx, lin, out_dtype=torch.float32)
+    exact = (xq.long().cpu() @ w.long().cpu()).float()
+    assert exact.abs().max() > 2 ** 27
+    assert torch.equal(got.cpu(), exact)
+
+
+def test_w8a8_kernel_takes_an_offset_view_and_refuses_an_unaligned_pointer(gen):
+    """The wrapper copies codes at an unaligned base to an aligned one (the
+    same bits); the C entry refuses an unaligned pointer before it launches."""
+    from quantizers_tpu_torch.ops import _build
+
+    lin = _w8a8(gen, 2560, 4096)
+    xq, sx = _codes(gen, 8, 2560)
+    view = _offset_view(xq)
+    before = K.w8a8_matmul.launches
+    assert torch.equal(K.w8a8_matmul(view, sx, lin), K.w8a8_matmul(xq, sx, lin))
+    assert K.w8a8_matmul.launches == before + 2
+    out = torch.empty((8, 4096), dtype=torch.bfloat16, device="cuda")
+    lib = _build.load()
+    err = lib.qtt_w8a8_matmul(view.data_ptr(), lin.weight.data_ptr(), sx.data_ptr(),
+                              lin.scale.data_ptr(), out.data_ptr(), None, 8, 2560, 4096, 0, 0, 1,
+                              torch.cuda.current_stream().cuda_stream)
+    assert err != 0 and "misaligned" in lib.qtt_error_string(err).decode()
+
+
+def test_w8a8_token_matmul_on_the_card_equals_the_cpu(gen):
+    """The whole W8A8 path, the per-token quantizer then K10, against the
+    CPU's quantizer and plain version: the same bits."""
+    from quantizers_tpu_torch.ops import dispatch as td
+
+    lin = _w8a8(gen, 2560, 9728)
+    cpu_lin = QuantLinear(kind=lin.kind, weight=lin.weight.cpu(), scale=lin.scale.cpu(),
+                          meta=lin.meta)
+    for m in (8, 1024):
+        x = (torch.randn((m, 2560), device="cuda", generator=gen) * 3).bfloat16()
+        assert torch.equal(td.w8a8_token_matmul(x, lin).cpu(),
+                           td.w8a8_token_matmul(x.cpu(), cpu_lin))
+
+
+@pytest.mark.parametrize("name", ["dynamic_quantize_token_fp8", "dynamic_quantize_group_fp8",
+                                  "dynamic_quantize_token_int8"])
+def test_dynamic_quantizers_on_the_card_equal_the_cpu(gen, name):
+    """They divide by tensors (the card multiplies by the reciprocal of a
+    Python scalar divisor), so the card's codes and scales are the CPU's,
+    on rows with +-inf and NaN too."""
+    from quantizers_tpu_torch.core import numerics as tn
+
+    x = torch.randn((16, 1000), device="cuda", generator=gen) * 5
+    x[0, 3], x[1, 4], x[2, 5] = float("inf"), float("-inf"), float("nan")
+    x[3] = 0.0
+    for t in (x, x.bfloat16()):
+        q, s = getattr(tn, name)(t)
+        qc, sc = getattr(tn, name)(t.cpu())
+        assert torch.equal(s.cpu().isnan(), sc.isnan())
+        assert torch.equal(s.cpu().nan_to_num(), sc.nan_to_num())
+        qf, qcf = q.cpu().float(), qc.float()
+        assert torch.equal(qf.isnan(), qcf.isnan())
+        assert torch.equal(qf.nan_to_num(), qcf.nan_to_num())
+
+
+def test_dynamic_fp8_saturates_on_the_card(gen):
+    """The FP8 quantizers' explicit rule on the card: the CPU test's row."""
+    from quantizers_tpu_torch.core import numerics as tn
+
+    q = torch.tensor([1.0, 300.0, 470.0, 600.0, -2000.0, 5000.0, float("inf"), float("-inf"),
+                      float("nan")], device="cuda")
+    got = tn._to_fp8_saturated(q).float().cpu()
+    assert got[:8].tolist() == [1.0, 288.0, 448.0, 448.0, -448.0, 448.0, 448.0, -448.0]
+    assert bool(got[8].isnan())

@@ -135,13 +135,17 @@ def test_later_kinds_raise_not_implemented():
                           scale=jnp.full((1, 1), 0.25, jnp.float32), meta=lin.meta)
     np.testing.assert_array_equal(lin.dequantize(torch.float32).numpy(),
                                   np.asarray(jlin.dequantize(jnp.float32)))
-    # a W8A8 linear carried over from the JAX package: its activation
-    # quantization is not ported, so only the A16 oracle may run
-    w8a8 = tl.QuantLinear(kind="w8", weight=torch.ones(256, 128, dtype=torch.int8),
-                          scale=torch.ones(1, 128, dtype=torch.bfloat16),
-                          meta=(("k", 256), ("n", 128), ("group_size", None),
-                                ("act", "token_i8")))
-    x = torch.ones(2, 256, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="slice 7b"):
-        w8a8.apply(x)
+    # a W8A8 linear carried over from the JAX package: served through the
+    # int8 GEMM with per-token int8 activations (slice 7b), the JAX
+    # package's bits; use_kernel=False stays the A16 oracle
+    w8 = np.random.default_rng(7).integers(-127, 128, (256, 128)).astype(np.int8)
+    meta = (("k", 256), ("n", 128), ("group_size", None), ("act", "token_i8"))
+    w8a8 = tl.QuantLinear(kind="w8", weight=torch.from_numpy(w8),
+                          scale=torch.full((1, 128), 0.01, dtype=torch.bfloat16), meta=meta)
+    jw8a8 = jl.QuantLinear(kind="w8", weight=jnp.asarray(w8),
+                           scale=jnp.full((1, 128), 0.01, jnp.bfloat16), meta=meta)
+    x = torch.from_numpy(_w((2, 256), 8) * 20).bfloat16()
+    jx = jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+    np.testing.assert_array_equal(w8a8.apply(x).float().numpy(),
+                                  np.asarray(jw8a8.apply(jx).astype(jnp.float32)))
     assert w8a8.apply(x, use_kernel=False).shape == (2, 128)

@@ -215,15 +215,37 @@ def test_bad_offload_refuses(models):
                 [], offload="disk", device="cpu")
 
 
-@pytest.mark.parametrize("name,slice_", [("GPTQModifier", "7d"), ("AWQModifier", "7e"),
-                                         ("SmoothQuantModifier", "7e"),
-                                         ("AutoRoundModifier", "7f")])
+@pytest.mark.parametrize("name,slice_", [("GPTQModifier", "7d"), ("AutoRoundModifier", "7f")])
 def test_unported_modifiers_name_their_slice(name, slice_, models):
     _, jparams, spec = models["dense"]
-    body = {} if name == "SmoothQuantModifier" else {"config_groups": {"group_0": W4G32}}
-    recipe = parse_recipe({"quant_stage": {"quant_modifiers": {name: body}}})
+    recipe = parse_recipe({"quant_stage": {"quant_modifiers": {
+        name: {"config_groups": {"group_0": W4G32}}}}})
     with pytest.raises(NotImplementedError, match=f"slice {slice_}"):
         oneshot(spec, params_from_numpy(jparams, device="cpu"), recipe, [], device="cpu")
+
+
+@pytest.mark.parametrize("name", ["AWQModifier", "SmoothQuantModifier"])
+def test_ported_modifiers_run(name, models):
+    """AWQ and SmoothQuant (slice 7e) run where they used to be refused:
+    AWQ compresses every linear, SmoothQuant only transforms (its paired RTN
+    compresses), and with no calibration batch both leave the folds out, as
+    in the JAX package (tests/test_torch_awq.py holds them against it)."""
+    jspec, jparams, spec = models["dense"]
+    mods = {name: {"config_groups": {"group_0": W4G32}}}
+    if name == "SmoothQuantModifier":
+        mods = {name: {}, "QuantizationModifier": {"config_groups": {"group_0": W4G32}}}
+    recipe = {"quant_stage": {"quant_modifiers": mods}}
+    batches = _batches(jspec.vocab_size)
+    for bs in (batches, []):
+        res = oneshot(spec, params_from_numpy(jparams, device="cpu"), parse_recipe(recipe), bs,
+                      device="cpu")
+        jres = joneshot(jspec, _clone(jparams), jparse(recipe), bs)
+        assert sorted(res.records) == sorted(jres.records)
+        assert len(res.records) == spec.num_layers * 7
+    # no batch: no statistic, so no fold: RTN's codes of the bf16 weights
+    for key, cp in jres.records.items():
+        np.testing.assert_array_equal(res.records[key].qt.values.numpy(),
+                                      np.asarray(cp.qt.values), err_msg=key)
 
 
 def test_independent_pipeline_merges_groups_as_jax(models):
