@@ -11,7 +11,8 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    the shapes the serving and evaluation paths give it, with timings
    beside the bound (the fp8 matmul and MLA decode kernels at path E's,
    the W8A8 int8 GEMM at Qwen3-4B's projections, unfused and as path I
-   serves them, bit for bit);
+   serves them, bit for bit; GPTQ's column elimination K11 through whole
+   solves at path J's shapes, bit for bit);
 4. serve, slice 1: a Qwen3-4B-shaped W4A16 model at full width and depth
    (random weights from a seeded generator), ``serving_layout(head_bits=8)``,
    an 8 x 128 prefill and 256 greedy decode steps, with the kernels'
@@ -69,9 +70,10 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
     ``recipe_moe_rtn_nvfp4.yaml`` on the first layer of path G's (codes,
     scales, NVFP4's global scales, ``k_scale`` / ``v_scale``, the quantized
     model's logits), and the ``mse`` observer's scales;
-19. path H (slice 7e): path F's bf16 checkpoint through ``do_oneshot``
-    with ``recipe_awq_w4a16.yaml`` (AWQ, W4A16 g32), with exact K4 and K1
-    launches in calibration, then ``cli/serve.main`` (K1, K2, K3);
+19. path H (slice 7e): the first 2 layers of path F's bf16 checkpoint
+    through ``do_oneshot`` with ``recipe_awq_w4a16.yaml`` (AWQ, W4A16 g32),
+    with exact K4 and K1 launches in calibration, then ``cli/serve.main``
+    (K1, K2, K3);
 20. path I (slice 7b): the same checkpoint with ``recipe_w8a8_int8.yaml``
     (dynamic per-token int8 activations), K10 on every propagate matmul,
     then ``cli/serve.main`` and a drive with exact per-step K10 launches
@@ -80,7 +82,19 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
     path F's model, ``recipe_minimax_experts_only_awq.yaml`` on the first
     layer of path G's (each mapping's pick and ``x_mean``, the codes, the
     logits through K1 or K10 on the card);
-15. after phase 21: one JSON line of per-kernel numbers, then the card's
+22. path J (slice 7d): path F's bf16 checkpoint through ``do_oneshot`` with
+    ``recipe_gptq_w4a16_g128.yaml`` (GPTQ W4A16 g128 asymmetric, actorder
+    group) and with a symmetric g32 GPTQ recipe this script writes, K11
+    (GPTQ's column elimination; phase 3 holds it bit for bit against its
+    plain version) exactly 208 times a layer, no host factor, then
+    ``cli/serve.main`` on both (the g32 one through K1, K2 and K3);
+23. card against CPU: both GPTQ recipes on the first 2 layers of path F's
+    model (codes, the GPTQ objective against RTN's, ``g_idx``, the logits
+    through K1; the card re-solving the CPU's own problems, and its own
+    with each Hessian entry moved by one f32 ulp), and the g32 one on path
+    G's first layer on the card alone (K11's exact launches, every expert's
+    objective at most RTN's);
+15. after phase 23: one JSON line of per-kernel numbers, then the card's
     nvidia-smi line, then the final ``{"ok": true, ...}`` line.
 
 Longer per-shape numbers go to ``chiprun_out/chip_smoke_detail.json``.
@@ -2372,9 +2386,12 @@ CODE_TIE_SHARE, SCALE_RTOL, KV_SCALE_RTOL = 1e-4, 1e-6, 1e-2
 MSE_TIE_RTOL = 1e-5
 
 
-def write_run_config(path: Path, model_dir: Path, recipe: str) -> Path:
+def write_run_config(path: Path, model_dir: Path, recipe) -> Path:
+    """A run config naming ``model_dir``, the fixture calibration set and a
+    recipe: a repository recipe's name, or the path of a recipe file."""
+    recipe_path = recipe if isinstance(recipe, Path) else ROOT / "configs" / "recipes" / f"{recipe}.yaml"
     path.write_text(f"model:\n  name: {model_dir}\nquantization:\n"
-                    f"  recipe: {ROOT}/configs/recipes/{recipe}.yaml\n"
+                    f"  recipe: {recipe_path}\n"
                     f"calibration_set: {QUICK_SET}\n")
     return path
 
@@ -2477,8 +2494,8 @@ def serve_output(label: str, ckpt: Path, text: str, served: tuple, card: str) ->
 def oneshot_dense_phase(detail, tmp: Path) -> tuple:
     """Path F: the full-depth Qwen3-4B bf16 checkpoint through do_oneshot
     with RTN NVFP4 on every linear, then served. Returns that checkpoint
-    (paths H and I take it) and the 2-layer bf16 checkpoint of the same
-    weights (phases 18 and 21)."""
+    (path J takes it) and the 2-layer bf16 checkpoint of the same weights
+    (paths H and I, phases 18, 21 and 23)."""
     from quantizers_tpu_torch.models import ModelSpec
 
     card = detail["device"]
@@ -2595,62 +2612,78 @@ def mse_on_both(w: dict, devices) -> dict:
     return res
 
 
-def engine_on_both(ckpt: Path, recipe_name: str, batches, ids, devices, recipe=None,
-                   cross: bool = False, plain_k10: bool = False) -> dict:
+def engine_side(ckpt: Path, recipe_name: str, recipe, batches, ids, dev, replay=None,
+                record=None, keep_params: bool = False) -> tuple:
     """``oneshot`` of one repository recipe (or the ``recipe`` dict given)
-    over one bf16 checkpoint on each device, the CPU (``devices[1]``) first:
-    per device its records (on the host), extra tensors, the quantized
-    model's logits on ``ids``, the router decisions of that forward (the
-    card takes the CPU's, as in ``card_vs_cpu_moe``), the flash launches of
-    calibration, the launches of the logits forward, the first q_proj
-    weight as loaded, and the seconds. With ``cross``, the card also runs
-    the CPU's quantized model (``cross_logits``, ``cross_routes``,
-    ``cross_launches``): the card's kernels against the CPU's plain path on
-    the same weights; with ``plain_k10`` as well once more with K10's plain
-    version in its place on the card (``cross_plain_k10_logits``)."""
+    over one bf16 checkpoint on ``dev``: its records (on the host), extra
+    tensors, the quantized model's logits on ``ids``, the router decisions
+    of that forward (taking ``replay``'s, another run's, where given), the
+    flash launches of calibration, the launches of the logits forward, the
+    first q_proj weight as loaded, the spec, the seconds, and the log of the
+    ``record`` recorder around ``oneshot`` ("awq": ``awq_searches``,
+    "gptq": ``gptq_sites``). Returns it with the quantized params where
+    ``keep_params``."""
     from quantizers_tpu_torch.models import forward, load_hf_model
-    from quantizers_tpu_torch.models.transformer import tree_to
     from quantizers_tpu_torch.oneshot import oneshot
     from quantizers_tpu_torch.ops import kernels as K
     from quantizers_tpu_torch.recipes import parse_recipe
 
-    recipe = parse_recipe(recipe if recipe is not None
-                          else str(ROOT / "configs" / "recipes" / f"{recipe_name}.yaml"))
-    out = {}
-    for dev in reversed(devices):
-        t0 = time.perf_counter()
-        spec, params = load_hf_model(ckpt, device=dev)
-        w = params["layers"][0]["q_proj"].dequantize(torch.float32).t().contiguous()
-        K.reset_launch_counts()
-        r = oneshot(spec, params, recipe, batches, device=dev)
-        flash = K.launch_counts()["flash_attention"]
-        replay = out[devices[1]]["routes"] if dev != devices[1] else None
-        K.reset_launch_counts()
-        with torch.no_grad(), RouteRecorder(replay) as rec:
-            logits = forward(r.params, spec, torch.as_tensor(ids, device=dev).long()
-                             )[0].float().cpu()
-        out[dev] = {"records": {k: cp.qt for k, cp in r.records.items()},
-                    "extra": r.extra_tensors, "logits": logits, "routes": rec.calls,
-                    "flash": flash, "forward": K.launch_counts(), "w": w,
-                    "s": time.perf_counter() - t0}
-        log(f"[card-vs-cpu oneshot] {recipe_name} on {dev}: {out[dev]['s']:.1f} s")
-        if cross and dev == devices[1]:
-            cpu_params = r.params
-        del params, r
+    recorder = ({"awq": awq_searches, "gptq": gptq_sites}[record]() if record
+                else contextlib.nullcontext([]))
+    t0 = time.perf_counter()
+    spec, params = load_hf_model(ckpt, device=dev)
+    w = params["layers"][0]["q_proj"].dequantize(torch.float32).t().contiguous()
+    K.reset_launch_counts()
+    with recorder as log_:
+        r = oneshot(spec, params, parse_recipe(
+            recipe if recipe is not None
+            else str(ROOT / "configs" / "recipes" / f"{recipe_name}.yaml")), batches, device=dev)
+    calibration = K.launch_counts()
+    K.reset_launch_counts()
+    with torch.no_grad(), RouteRecorder(replay) as rec:
+        logits = forward(r.params, spec, torch.as_tensor(ids, device=dev).long()
+                         )[0].float().cpu()
+    side = {"records": {k: cp.qt for k, cp in r.records.items()}, "extra": r.extra_tensors,
+            "logits": logits, "routes": rec.calls, "flash": calibration["flash_attention"],
+            "calibration": calibration, "forward": K.launch_counts(), "w": w, "spec": spec,
+            "log": log_, "s": time.perf_counter() - t0}
+    log(f"[card-vs-cpu oneshot] {recipe_name} on {dev}: {side['s']:.1f} s")
+    return side, (r.params if keep_params else None)
+
+
+def engine_on_both(ckpt: Path, recipe_name: str, batches, ids, devices, recipe=None,
+                   cross: bool = False, plain_k10: bool = False, record=None) -> dict:
+    """``engine_side`` on each device, the CPU (``devices[1]``) first, the
+    card taking the CPU's router decisions (as in ``card_vs_cpu_moe``).
+    With ``cross``, the card also runs the CPU's quantized model
+    (``cross_logits``, ``cross_routes``, ``cross_launches``): the card's
+    kernels against the CPU's plain path on the same weights; with
+    ``plain_k10`` as well once more with K10's plain version in its place on
+    the card (``cross_plain_k10_logits``)."""
+    from quantizers_tpu_torch.models import forward
+    from quantizers_tpu_torch.models.transformer import tree_to
+    from quantizers_tpu_torch.ops import kernels as K
+
+    dev, cpu = devices
+    ref, cpu_params = engine_side(ckpt, recipe_name, recipe, batches, ids, cpu, record=record,
+                                  keep_params=cross)
+    got, _ = engine_side(ckpt, recipe_name, recipe, batches, ids, dev, replay=ref["routes"],
+                         record=record)
+    out = {cpu: ref, dev: got}
     if cross:
-        dev, cpu = devices
+        spec = ref["spec"]
         K.reset_launch_counts()
-        with torch.no_grad(), RouteRecorder(out[cpu]["routes"]) as rec:
+        with torch.no_grad(), RouteRecorder(ref["routes"]) as rec:
             logits = forward(tree_to(cpu_params, dev), spec,
                              torch.as_tensor(ids, device=dev).long())[0].float().cpu()
-        out[dev].update(cross_logits=logits, cross_routes=rec.calls,
-                        cross_launches=K.launch_counts())
+        got.update(cross_logits=logits, cross_routes=rec.calls,
+                   cross_launches=K.launch_counts())
         if plain_k10:
-            with torch.no_grad(), RouteRecorder(out[cpu]["routes"]), K10Plain():
-                out[dev]["cross_plain_k10_logits"] = forward(
+            with torch.no_grad(), RouteRecorder(ref["routes"]), K10Plain():
+                got["cross_plain_k10_logits"] = forward(
                     tree_to(cpu_params, dev), spec,
                     torch.as_tensor(ids, device=dev).long())[0].float().cpu()
-        del cpu_params
+    del cpu_params
     return out
 
 
@@ -2732,13 +2765,13 @@ def records_agree(label: str, got: dict, ref: dict, n_records: int) -> dict:
     return row
 
 
-def card_vs_cpu_oneshot(detail, tmp: Path, dense: Path, moe: Path,
-                        devices=("cuda", "cpu")) -> None:
-    """The engine on both devices over the same calibration batches:
-    recipe_fp8_kv8 (FP8 channel weights, the FP8 KV cache: its scales need
-    the capture pass) and recipe_dense_nvfp4 on the 2-layer dense
-    checkpoint, recipe_moe_rtn_nvfp4 (experts only) on the 1-layer MoE
-    one; then the mse observer's picks on both devices."""
+def comparison_batches(tmp: Path) -> tuple:
+    """The card-against-CPU oneshot checks' calibration (phases 18, 21 and
+    23): the fixture set's first 8 rows as two (4, 256) batches, the logits'
+    ids (the last batch's first row), and its first row alone (the
+    experts-only AWQ searches all 128 experts at full width: one row keeps
+    its CPU side's loss products small), from the calibration cache that
+    path F's ``do_oneshot`` built."""
     from quantizers_tpu_torch.data import ByteTokenizer, CalibrationSet, CalibrationSetConfig
     from quantizers_tpu_torch.oneshot import make_batches
 
@@ -2749,7 +2782,17 @@ def card_vs_cpu_oneshot(detail, tmp: Path, dense: Path, moe: Path,
                  else CalibrationSet.from_config(cfg, cache))
         rows = [r["input_ids"] for r in calib.get_tokenized(ByteTokenizer())]
     batches = make_batches(rows[:8], max_seq_length=256, batch_size=4)[:2]
-    ids = batches[-1][0][:1]
+    return batches, batches[-1][0][:1], make_batches(rows[:1], max_seq_length=256, batch_size=1)
+
+
+def card_vs_cpu_oneshot(detail, tmp: Path, dense: Path, moe: Path,
+                        devices=("cuda", "cpu")) -> None:
+    """The engine on both devices over the same calibration batches:
+    recipe_fp8_kv8 (FP8 channel weights, the FP8 KV cache: its scales need
+    the capture pass) and recipe_dense_nvfp4 on the 2-layer dense
+    checkpoint, recipe_moe_rtn_nvfp4 (experts only) on the 1-layer MoE
+    one; then the mse observer's picks on both devices."""
+    batches, ids, _ = comparison_batches(tmp)
     row = {"device": detail["device"], "batches": [list(b[0].shape) for b in batches]}
     detail["card_vs_cpu_oneshot"] = row
     # (recipe, checkpoint, its layers, records a layer, the batches: the
@@ -2805,7 +2848,7 @@ def calibration_scale(detail) -> None:
     from quantizers_tpu_torch.cli.do_oneshot import save_result
     from quantizers_tpu_torch.data import CalibrationSetConfig
     from quantizers_tpu_torch.data.simple_tokenizer import load_tokenizer
-    from quantizers_tpu_torch.models import ModelSpec, load_hf_model
+    from quantizers_tpu_torch.models import load_hf_model
     from quantizers_tpu_torch.oneshot import make_batches, oneshot
     from quantizers_tpu_torch.oneshot.engine import streaming_peak_bytes
     from quantizers_tpu_torch.ops import kernels as K
@@ -2883,6 +2926,11 @@ def calibration_scale(detail) -> None:
 
 #: H100 SXM dense int8 tensor rate (NVIDIA data sheet), operations/s
 INT8_OPS = 1979e12
+#: the depth of paths H and I: the first layers of path F's model (the
+#: checkpoint phases 18, 21 and 23 take too), cut from 36 so that the whole
+#: script stays within 900 s once path J and phase 23 run (969.1 s with
+#: both at full depth on an H100)
+HI_LAYERS = 2
 #: Qwen3-4B's seven projections (K, N): K10's shapes in path I's calibration
 QWEN3_PROJ = {"q_proj": (2560, 4096), "k_proj": (2560, 1024), "v_proj": (2560, 1024),
               "o_proj": (4096, 2560), "gate_proj": (2560, 9728), "up_proj": (2560, 9728),
@@ -3075,15 +3123,15 @@ def calibration_launches(spec, shapes, forwards: int, matmul: str, every_m: bool
 
 
 def oneshot_awq_phase(detail, tmp: Path, bf16: Path) -> None:
-    """Path H: path F's full-depth Qwen3-4B bf16 checkpoint through
-    ``do_oneshot`` with recipe_awq_w4a16 (AWQ, W4A16 g32) on the card: the
-    stage seconds, the peak memory, 252 records, the exact K4 (capture and
-    propagate) and K1 (propagate) launches; then served (K1, K2, the int8
-    head on K3)."""
+    """Path H: the first HI_LAYERS layers of path F's Qwen3-4B bf16
+    checkpoint (``bf16``) through ``do_oneshot`` with recipe_awq_w4a16
+    (AWQ, W4A16 g32) on the card: the stage seconds, the peak memory, 7
+    records a layer, the exact K4 (capture and propagate) and K1
+    (propagate) launches; then served (K1, K2, the int8 head on K3)."""
     from quantizers_tpu_torch.models import ModelSpec
 
     card = detail["device"]
-    spec = ModelSpec(**GEOMETRY)
+    spec = ModelSpec(**dict(GEOMETRY, num_layers=HI_LAYERS))
     out = tmp / "qwen3_4b_awq_w4a16"
     with BatchShapes() as shapes:
         run = oneshot_cli("path H", write_run_config(tmp / "run_H.yaml", bf16, "recipe_awq_w4a16"),
@@ -3170,7 +3218,7 @@ def drive_w8a8(label: str, ckpt: Path, steps: int, device: str = "cuda") -> dict
 
 
 def oneshot_w8a8_phase(detail, tmp: Path, bf16: Path) -> dict:
-    """Path I: the same checkpoint through ``do_oneshot`` with
+    """Path I: path H's checkpoint through ``do_oneshot`` with
     recipe_w8a8_int8 (RTN int8 per channel, dynamic per-token int8
     activations): K10 on every propagate matmul and K4 in the exact counts;
     then ``cli/serve.main`` (K10, K2, K3) and the exact per-step drive;
@@ -3179,7 +3227,7 @@ def oneshot_w8a8_phase(detail, tmp: Path, bf16: Path) -> dict:
     from quantizers_tpu_torch.models import ModelSpec
 
     card = detail["device"]
-    spec = ModelSpec(**GEOMETRY)
+    spec = ModelSpec(**dict(GEOMETRY, num_layers=HI_LAYERS))
     out = tmp / "qwen3_4b_w8a8"
     with W8A8Shapes() as k10, BatchShapes() as shapes:
         run = oneshot_cli("path I", write_run_config(tmp / "run_I.yaml", bf16, "recipe_w8a8_int8"),
@@ -3337,30 +3385,17 @@ def card_vs_cpu_slice7(detail, tmp: Path, dense: Path, moe: Path,
     the two devices' own quantized models' logits (reported)."""
     import yaml
 
-    from quantizers_tpu_torch.data import ByteTokenizer, CalibrationSet, CalibrationSetConfig
-    from quantizers_tpu_torch.oneshot import make_batches
-
-    cfg = CalibrationSetConfig.from_file(str(QUICK_SET))
-    cache = str(tmp / "calibration_cache")
-    with contextlib.chdir(ROOT):
-        calib = (CalibrationSet.from_cache(cfg, cache) if CalibrationSet.is_cached(cfg, cache)
-                 else CalibrationSet.from_config(cfg, cache))
-        rows = [r["input_ids"] for r in calib.get_tokenized(ByteTokenizer())]
-    batches = make_batches(rows[:8], max_seq_length=256, batch_size=4)[:2]
-    ids = batches[-1][0][:1]
-    # the experts-only AWQ searches all 128 experts at full width: one row
-    # keeps its CPU side's loss products small
-    one_row = make_batches(rows[:1], max_seq_length=256, batch_size=1)
+    batches, ids, one_row = comparison_batches(tmp)
     sq_w8a8 = yaml.safe_load((ROOT / "configs" / "recipes" / "recipe_w8a8_int8.yaml").read_text())
     mods = sq_w8a8["quant_stage"]["quant_modifiers"]
     sq_w8a8["quant_stage"]["quant_modifiers"] = {
         "SmoothQuantModifier": {"smoothing_strength": 0.5}, **mods}
     row = {"device": detail["device"], "batches": [list(b[0].shape) for b in batches]}
     detail["card_vs_cpu_slice7"] = row
-    E = MOE_GEOMETRY["num_experts"]
     # layer 0 q and k: folded once, by the first mapping (v is folded again by
     # the v -> o mapping, whose activations differ)
     qk0 = ("model.layers.0.self_attn.q_proj", "model.layers.0.self_attn.k_proj")
+    E = MOE_GEOMETRY["num_experts"]
     # (label, recipe name, recipe override, checkpoint, layers, records a
     # layer, batches, the cross forward's kernel)
     cases = (("awq_w4a16", "recipe_awq_w4a16", None, dense, 2, 7, batches, "w4_matmul"),
@@ -3370,15 +3405,13 @@ def card_vs_cpu_slice7(detail, tmp: Path, dense: Path, moe: Path,
               one_row, "w4_matmul"))
     for name, recipe_name, recipe, ckpt, layers, per_layer, bs, kernel in cases:
         label = f"card vs CPU {name}"
-        with awq_searches() as searches:
-            res = engine_on_both(ckpt, recipe_name, bs, ids, devices, recipe=recipe, cross=True,
-                                 plain_k10=kernel == "w8a8_matmul")
+        res = engine_on_both(ckpt, recipe_name, bs, ids, devices, recipe=recipe, cross=True,
+                             plain_k10=kernel == "w8a8_matmul", record="awq")
         got, ref = (res[d] for d in devices)
         r = {"layers": layers, "seconds": {d: res[d]["s"] for d in devices},
              "flash_launches_card": got["flash"], "cross_launches_card": got["cross_launches"]}
-        if searches:  # AWQ: the CPU searched first
-            half = len(searches) // 2
-            r["awq"] = searches_agree(label, searches[half:], searches[:half], layers,
+        if ref["log"]:  # AWQ
+            r["awq"] = searches_agree(label, got["log"], ref["log"], layers,
                                       same_first=recipe_name == "recipe_awq_w4a16")
             first = r["awq"]["first_layer_apart"]
             r["codes"] = int_codes_agree(
@@ -3405,10 +3438,630 @@ def card_vs_cpu_slice7(detail, tmp: Path, dense: Path, moe: Path,
         del res, got, ref
 
 
+# ---------------------------------------------------------------------------
+# slice 7d: K11, GPTQ's column elimination (phase 3), path J from path F's
+# bf16 checkpoint (phase 22), and card against CPU (phase 23)
+# ---------------------------------------------------------------------------
+
+#: H100 SXM f32 rate outside the tensor cores (NVIDIA data sheet), FLOP/s
+F32_FLOPS = 67e12
+#: GPTQ's block of columns (the recipes' block_size), K11's widest
+GPTQ_BLOCK = 128
+#: K11's shapes on path J: Qwen3-4B's projections as (N, K), one solve each
+GPTQ_SHAPES = {name: (n, k) for name, (k, n) in QWEN3_PROJ.items()}
+#: K11 launches a Qwen3-4B layer: ceil(K / 128) for each of its projections
+GPTQ_BLOCKS_PER_LAYER = sum(-(-k // GPTQ_BLOCK) for k, _ in QWEN3_PROJ.values())
+#: (N, K, symmetric, group, actorder) beyond path J's symmetric g32: the
+#: repository recipe's asymmetric g128 with actorder group, actorder weight,
+#: asymmetric g32, K not a multiple of 128 (padded), a block under 128, a
+#: block width that is not a multiple of 4 (padded by the wrapper)
+GPTQ_OTHER = ((1024, 2560, False, 128, "group"), (2560, 9728, False, 128, "group"),
+              (4096, 2560, False, 32, None), (1024, 4096, True, 128, "weight"),
+              (1024, 2600, False, 32, "group"), (256, 96, True, 32, None), (64, 50, False, 32, None))
+#: path J's second recipe, written by this script: GPTQ W4A16 symmetric g32
+#: with no actorder (path H's scheme: K1 serves it)
+GPTQ_G32 = {"quant_stage": {"quant_modifiers": {"GPTQModifier": {
+    "dampening_frac": 0.01, "block_size": GPTQ_BLOCK, "ignore": ["lm_head"],
+    "config_groups": {"group_0": {"targets": ["Linear"], "weights": {
+        "num_bits": 4, "type": "int", "symmetric": True, "strategy": "group",
+        "group_size": 32}}}}}}}
+#: phase 23, card against CPU. The devices' calibration inputs agree only
+#: at layer 0's q, k and v, and even there their Hessians differ by the
+#: sums' order (1.3e-6 of the largest entry on an H100; up to 3e-3
+#: elsewhere); GPTQ's solution is flat along the near-null directions of
+#: its Hessian (at most 2,048 calibration tokens against K 2560-9728,
+#: damped by 1% of its mean diagonal), so a Hessian a rounding apart moves
+#: codes by several steps while the objective it minimizes,
+#: tr((W - W^) H (W - W^)^T), moves little. ``gptq_decomposed`` measures
+#: that on one device, the witness: the card solves each of its own
+#: problems again GPTQ_WITNESS_DRAWS times, each with every Hessian entry
+#: moved by one f32 ulp (about 1.2e-7); and it has the card solve each of
+#: the CPU's problems (its W and H) again. Per layer, each site's objective,
+#: on the CPU's problem and on each device's own, must lie within a share
+#: of the CPU's: the larger of GPTQ_OBJ_RTOL and GPTQ_WITNESS_FACTOR times
+#: the witness's largest spread in that layer; on the CPU's problem the
+#: permutation must be the CPU's and the codes apart at most
+#: GPTQ_WITNESS_FACTOR times the witness's share (over all its draws); each
+#: device's own codes (for a recipe with
+#: no actorder: with actorder the devices' groups differ wherever their
+#: diagonals' orders do) at most GPTQ_CODE_SHARE of layer 0's and of layer
+#: 1's apart (8.6% and 14.4% on an H100); and every objective below
+#: RTN's on the same H on both devices
+GPTQ_OBJ_RTOL = 1e-2
+GPTQ_WITNESS_DRAWS = 3
+GPTQ_WITNESS_FACTOR = 2.0
+GPTQ_CODE_SHARE = (0.2, 0.3)
+
+
+def gptq_args(sym: bool, g: int, actorder):
+    from quantizers_tpu_torch.core.scheme import QuantizationArgs
+
+    return QuantizationArgs.from_dict({"num_bits": 4, "type": "int", "symmetric": sym,
+                                       "strategy": "group", "group_size": g,
+                                       "actorder": actorder})
+
+
+def gptq_problem(gen, n: int, k: int):
+    """A weight (N, K) and a Hessian 2 X^T X of seeded activations, every
+    third input channel 10x louder (as the JAX package's GPTQ tests make
+    them), on the generator's device."""
+    dev = gen.device
+    w = torch.randn((n, k), device=dev, generator=gen) * 0.02
+    x = torch.randn((min(2 * k, 4096), k), device=dev, generator=gen)
+    x[:, ::3] *= 10.0
+    return w, 2.0 * (x.t() @ x)
+
+
+def check_gptq(gen, n: int, k: int, sym: bool = True, g: int = 32, actorder=None) -> dict:
+    """K11 against its plain version on the card through a whole solve:
+    ``gptq_quantize`` at (N, K), its ``_gptq_solve`` (K11 for every block)
+    recorded, then ``gptq_solve_plain`` on the same inputs: the codes equal
+    bit for bit (a block's Err differing anywhere would move the later
+    blocks' codes), and a second K11 solve the same."""
+    from quantizers_tpu_torch.oneshot import gptq as TG
+    from quantizers_tpu_torch.ops import kernels as K
+
+    w, H = gptq_problem(gen, n, k)
+    solves, orig = [], TG._gptq_solve
+
+    def recording(*a, **kw):
+        q = orig(*a, **kw)
+        solves.append((a, kw, q))
+        return q
+    before = K.gptq_block.launches
+    TG._gptq_solve = recording
+    try:
+        _, g_idx = TG.gptq_quantize(w, H, gptq_args(sym, g, actorder), GPTQ_BLOCK)
+    finally:
+        TG._gptq_solve = orig
+    (a, kw, got), = solves
+    ref = TG.gptq_solve_plain(*a, **kw)
+    again = orig(*a, **kw)
+    torch.cuda.synchronize()
+    blocks = a[0].shape[1] // kw["block_size"]
+    label = f"gptq_block {n}x{k} {'sym' if sym else 'asym'} g{g} {actorder}"
+    check(K.gptq_block.launches == before + 2 * blocks, f"{label}: launches not counted")
+    K.gptq_block.launches = before  # checks are not main-path launches
+    check(bool(torch.isfinite(got).all()), f"{label}: non-finite codes")
+    check(bool(torch.equal(got, ref)),
+          f"{label}: {int((got != ref).sum())} codes differ from the plain version")
+    check(bool(torch.equal(again, got)), f"{label}: differs from run to run")
+    return {"n": n, "k": k, "symmetric": sym, "group": g, "actorder": actorder,
+            "blocks": blocks, "g_idx": g_idx is not None,
+            "max_abs_err": (got - ref).abs().max().item(), "tol": 0.0}
+
+
+def gptq_block_bound(n: int, bs: int, g: int) -> dict:
+    """The least time of one symmetric K11 launch: W read (f32), the codes
+    written at the width ``gptq_quantize`` keeps them (int8: the grid
+    values lie in [qmin, qmax]) and Err written (f32, the tail product
+    reads it), U's block, the column groups and the groups' scales read
+    once, against its f32 operations (N (bs (bs - 1) + 8 bs): the updates'
+    multiply and subtract, each column's snap and error), over the f32 rate
+    outside the tensor cores."""
+    groups = -(-bs // g)
+    nbytes = 9 * n * bs + 4 * bs * bs + 4 * bs + 4 * n * groups
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, n * (bs * (bs - 1) + 8 * bs) / F32_FLOPS
+    return {"bytes_ms": t_bytes * 1e3, "ops_ms": t_ops * 1e3,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def time_gptq_block(gen, n: int, g: int = 32) -> dict:
+    """One K11 launch at N rows and a 128-column block (path J's symmetric
+    g32), its Q and Err bit for bit against the plain version's, then its
+    time and device time, the plain version's and the bound. The weights
+    rotate through copies, as a solve meets each block once."""
+    from quantizers_tpu_torch.oneshot import gptq as TG
+    from quantizers_tpu_torch.ops import kernels as K
+
+    args = gptq_args(True, g, None)
+    w, H = gptq_problem(gen, n, GPTQ_BLOCK)
+    u = TG._ufactor(H, 0.01)
+    scale, _, _ = TG._solve_qparams(w, args)
+    cg = (torch.arange(GPTQ_BLOCK, device=w.device) // g).to(torch.int32)
+    qmin, qmax = args.qrange
+    before = K.gptq_block.launches
+    q, err = K.gptq_block(w, u, scale, None, cg, qmin, qmax)
+    q_ref, err_ref = K.gptq_block_plain(w, u, scale, None, cg, qmin, qmax)
+    torch.cuda.synchronize()
+    label = f"gptq_block {n}x{GPTQ_BLOCK} g{g}"
+    check(bool(torch.equal(q, q_ref)) and bool(torch.equal(err, err_ref)),
+          f"{label}: Q or Err differ from the plain version")
+    copies = [w] + [w.clone() for _ in range(copies_for(12 * n * GPTQ_BLOCK) - 1)]
+    wsrc = rotating(copies)
+    row = {"n": n, "bs": GPTQ_BLOCK, "group": g,
+           "max_abs_err": max((q - q_ref).abs().max().item(), (err - err_ref).abs().max().item()),
+           "tol": 0.0,
+           "ms": cuda_ms(lambda: K.gptq_block(wsrc(), u, scale, None, cg, qmin, qmax)),
+           "dev_ms": device_ms(lambda: K.gptq_block(wsrc(), u, scale, None, cg, qmin, qmax)),
+           "plain_ms": cuda_ms(lambda: K.gptq_block_plain(w, u, scale, None, cg, qmin, qmax),
+                               iters=3, warmup=1),
+           "library_ms": None, **gptq_block_bound(n, GPTQ_BLOCK, g)}
+    K.gptq_block.launches = before
+    return row
+
+
+def gptq_kernels(gen, detail) -> dict:
+    """Phase 3, K11: a whole solve bit for bit against the plain version at
+    each of path J's shapes (symmetric g32) and the GPTQ_OTHER cases; one
+    launch timed at each of path J's row counts; the wrapper on a W block
+    at an unaligned base (it copies it) and the C entry's refusal of it."""
+    from quantizers_tpu_torch.ops import _build
+    from quantizers_tpu_torch.ops import kernels as K
+
+    rows = {f"{name} {n}x{k}": check_gptq(gen, n, k) for name, (n, k) in GPTQ_SHAPES.items()}
+    for n, k, sym, g, actorder in GPTQ_OTHER:
+        rows[f"{n}x{k} {'sym' if sym else 'asym'} g{g} {actorder}"] = check_gptq(
+            gen, n, k, sym, g, actorder)
+    for n in sorted({n for n, _ in GPTQ_SHAPES.values()}):
+        rows[f"block@n{n}"] = time_gptq_block(gen, n)
+    w = torch.randn((64, GPTQ_BLOCK), device=gen.device, generator=gen)
+    u = torch.eye(GPTQ_BLOCK, device=gen.device) + torch.triu(
+        torch.rand((GPTQ_BLOCK, GPTQ_BLOCK), device=gen.device, generator=gen), 1) * 0.1
+    scale = torch.rand((64, 4), device=gen.device, generator=gen) * 0.5 + 0.1
+    cg = (torch.arange(GPTQ_BLOCK, device=gen.device) // 32).to(torch.int32)
+    wo = offset_view(w)
+    before = K.gptq_block.launches
+    a, b = K.gptq_block(wo, u, scale, None, cg, -8.0, 7.0), K.gptq_block(w, u, scale, None, cg,
+                                                                         -8.0, 7.0)
+    same = bool(torch.equal(a[0], b[0])) and bool(torch.equal(a[1], b[1]))
+    check(wo.data_ptr() % 16 != 0 and same, "gptq_block: a call on an offset view differs")
+    q, e = torch.empty_like(w), torch.empty_like(w)
+    err = _build.load().qtt_gptq_block(
+        wo.data_ptr(), GPTQ_BLOCK, u.data_ptr(), GPTQ_BLOCK, scale.data_ptr(), None, 4,
+        cg.data_ptr(), q.data_ptr(), e.data_ptr(), 64, GPTQ_BLOCK, -8.0, 7.0,
+        torch.cuda.get_device_properties(0).multi_processor_count,
+        torch.cuda.current_stream().cuda_stream)
+    check(err != 0, "gptq_block: the C entry took an unaligned pointer")
+    K.gptq_block.launches = before
+    rows["offset_view"] = {"offset_bytes": wo.data_ptr() % 16, "equal": same,
+                           "c_entry_refusal": _build.load().qtt_error_string(err).decode()}
+    for label, r in rows.items():
+        log(f"[kernels] gptq_block {label}: {r}")
+    detail["kernels"]["gptq_block"] = rows
+    return rows
+
+
+class K11LayerTrace:
+    """One layer's GPTQ solves of a ``do_oneshot`` run, measured in that run:
+    the 7 ``_gptq_solve`` calls of layer ``layer`` (q, k, v, o, gate, up,
+    down) run under torch.profiler (started after the layer before's last
+    solve, so that its calibration forwards come first), each K11 launch
+    between two CUDA events, and their inputs and codes kept. ``replay`` then solves them
+    again with K11's plain version on the card, each plain block between
+    two events, and holds the codes bit for bit against the run's. Its
+    ``row``: the layer's K11 launches in the trace, their device time
+    (``dev_ms``), their event time (``ms``), the plain blocks' (``plain_ms``)
+    and the launches' summed bound."""
+
+    def __init__(self, layer: int, per_layer: int = 7):
+        assert layer >= 1, "the trace starts after the layer before's last solve"
+        self.first, self.last = layer * per_layer, layer * per_layer + per_layer - 1
+        self.layer = layer
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        from quantizers_tpu_torch.oneshot import gptq as TG
+        from quantizers_tpu_torch.ops import kernels as K
+
+        self.TG, self.orig, self.calls, self.solves, self.events = TG, TG._gptq_solve, 0, [], []
+
+        def timed(*b):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = K.gptq_block(*b)
+            e.record()
+            self.events.append((s, e))
+            return out
+
+        def solve(*a, **kw):
+            i, self.calls = self.calls, self.calls + 1
+            if not self.first <= i <= self.last:
+                q = self.orig(*a, **kw)
+                if i == self.first - 1:  # trace from here: a trace can lose its first
+                    torch.cuda.synchronize()  # kernels, and no K11 launch comes before first
+                    self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                    self.prof.__enter__()
+                return q
+            if i == self.first:
+                torch.cuda.synchronize()
+                self.t0 = time.perf_counter()
+            q = TG._eliminate(timed, *a, kw["block_size"], kw["qmin"], kw["qmax"], kw["sym"])
+            self.solves.append((a, kw, q))
+            if i == self.last:
+                torch.cuda.synchronize()
+                self.wall_ms = (time.perf_counter() - self.t0) * 1e3
+                self.prof.__exit__(None, None, None)
+            return q
+        TG._gptq_solve = solve
+        return self
+
+    def __exit__(self, *exc):
+        self.TG._gptq_solve = self.orig
+        return False
+
+    def replay(self) -> dict:
+        from torch.autograd import DeviceType
+
+        from quantizers_tpu_torch.ops import kernels as K
+
+        check(len(self.solves) == self.last - self.first + 1,
+              f"K11 trace: {len(self.solves)} solves of layer {self.layer} recorded")
+        launches, dev_us = 0, 0.0
+        for e in self.prof.key_averages():
+            if e.device_type == DeviceType.CUDA and "gptq_block_kernel" in e.key:
+                launches += e.count
+                dev_us += getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+        ms = sum(s.elapsed_time(e) for s, e in self.events)
+        plain, bound = [], 0.0
+
+        def timed_plain(*b):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = K.gptq_block_plain(*b)
+            e.record()
+            plain.append((s, e))
+            return out
+        apart = 0
+        for a, kw, q in self.solves:
+            ref = self.TG._eliminate(timed_plain, *a, kw["block_size"], kw["qmin"], kw["qmax"],
+                                     kw["sym"])
+            apart += int((ref != q).sum())
+            n, k = a[0].shape
+            bound += k // kw["block_size"] * gptq_block_bound(n, kw["block_size"], 32)["bound_ms"]
+        torch.cuda.synchronize()
+        want = sum(a[0].shape[1] // kw["block_size"] for a, kw, _ in self.solves)
+        row = {"layer": self.layer, "launches": launches, "launches_want": want,
+               "events": len(self.events), "dev_ms": dev_us / 1e3, "ms": ms,
+               "plain_ms": sum(s.elapsed_time(e) for s, e in plain), "bound_ms": bound,
+               "solve_wall_ms": self.wall_ms, "codes_apart_from_plain": apart}
+        log(f"[path J] K11 layer {self.layer} trace: {row}")
+        check(launches == want == len(self.events),
+              f"K11 trace: {launches} launches in the trace, {len(self.events)} timed, want {want}")
+        check(apart == 0, f"K11 trace: {apart} codes of layer {self.layer} differ from the plain "
+              "version's on the same inputs")
+        self.solves = []
+        return row
+
+
+def oneshot_gptq_phase(detail, tmp: Path, bf16: Path) -> None:
+    """Path J: path F's full-depth Qwen3-4B bf16 checkpoint through
+    ``do_oneshot`` on the card with the repository's GPTQ recipe (W4A16
+    g128 asymmetric, actorder group) and with GPTQ_G32: the stage seconds,
+    the peak memory, 252 records (with ``weight_g_idx`` for the first), the
+    exact K4 and K11 launches (and K1's on the g32 propagate), no host
+    factor; then ``cli/serve.main`` on each (the g32 one through K1, K2 and
+    K3; the asymmetric one through the reference path, K2 and K3). The g32
+    run's layer 1 is traced (``K11LayerTrace``): K11's numbers in the
+    kernels line."""
+    import yaml
+
+    from quantizers_tpu_torch.formats.checkpoint import CompressedModelReader
+    from quantizers_tpu_torch.models import ModelSpec
+    from quantizers_tpu_torch.oneshot import gptq as TG
+
+    card = detail["device"]
+    spec = ModelSpec(**GEOMETRY)
+    g32 = tmp / "recipe_gptq_w4a16_g32.yaml"
+    g32.write_text(yaml.safe_dump(GPTQ_G32))
+    row = {"device": card, "k11_launches_per_layer": GPTQ_BLOCKS_PER_LAYER}
+    detail["path_J"] = row
+    for label, recipe, sym in (("gptq_w4a16_g128", "recipe_gptq_w4a16_g128", False),
+                               ("gptq_w4a16_g32", g32, True)):
+        out = tmp / f"qwen3_4b_{label}"
+        fallbacks = TG.host_factor_fallbacks
+        with BatchShapes() as shapes, \
+                (K11LayerTrace(1) if sym else contextlib.nullcontext()) as trace:
+            run = oneshot_cli(f"path J {label}",
+                              write_run_config(tmp / f"run_J_{label}.yaml", bf16, recipe),
+                              out, tmp / "calibration_cache", card)
+        want = calibration_launches(spec, shapes.shapes, 2, "w4_matmul", every_m=False)
+        if not sym:  # K1 takes symmetric w4 only: the propagate dequantizes
+            want["w4_matmul"] = 0
+        want["gptq_block"] = GPTQ_BLOCKS_PER_LAYER * spec.num_layers
+        check(run["records"] == spec.num_layers * 7,
+              f"path J {label}: {run['records']} records, want {spec.num_layers * 7}")
+        check(run["launches"] == want, f"path J {label}: calibration launches "
+              f"{run['launches']} != {want}")
+        check(TG.host_factor_fallbacks == fallbacks,
+              f"path J {label}: {TG.host_factor_fallbacks - fallbacks} host factors")
+        w = json.loads((out / "config.json").read_text())["quantization_config"][
+            "config_groups"]["group_0"]["weights"]
+        check((w["symmetric"], w["group_size"], w.get("actorder")) ==
+              (sym, 32 if sym else 128, None if sym else "group"),
+              f"path J {label}: the checkpoint's scheme is {w}")
+        with CompressedModelReader(out) as r:
+            quant = r.quantized_modules()
+            with_g_idx = sum(r.g_idx(p) is not None for p in quant)
+        check(len(quant) == spec.num_layers * 7 and with_g_idx == (0 if sym else len(quant)),
+              f"path J {label}: {with_g_idx} of {len(quant)} records with weight_g_idx")
+        torch.cuda.empty_cache()
+        served = serve_output(f"path J {label}", out, synthetic_text(),
+                              (("decode_attention",), ("w8_matmul",))
+                              + ((("w4_matmul",),) if sym else ()), card)
+        row[label] = {"batches": shapes.shapes, "oneshot": run, "weight_g_idx": with_g_idx,
+                      "host_factor_fallbacks": TG.host_factor_fallbacks - fallbacks,
+                      "serve": served}
+        if trace is not None:  # after the counts and the serve run
+            check(trace.calls == spec.num_layers * 7, f"path J {label}: {trace.calls} solves")
+            row[label]["k11_layer"] = trace.replay()
+        shutil.rmtree(out)
+
+
+@contextlib.contextmanager
+def gptq_sites():
+    """Every ``gptq_quantize`` call of the port while active, in order, as
+    made: W (as bf16 where that holds it exactly), H, the arguments, the
+    codes and g_idx (``site_objectives`` turns one into numbers)."""
+    from quantizers_tpu_torch.oneshot import gptq as TG
+
+    log_, orig = [], TG.gptq_quantize
+
+    def recording(w, H, args, block_size=128, dampening_frac=0.01, **kw):
+        qt, g_idx = orig(w, H, args, block_size, dampening_frac, **kw)
+        wb = w.bfloat16()
+        log_.append({"device": w.device.type, "w": wb if torch.equal(wb.float(), w) else w,
+                     "H": H, "args": args, "block_size": block_size, "damp": dampening_frac,
+                     "qt": qt, "g_idx": g_idx})
+        return qt, g_idx
+    TG.gptq_quantize = recording
+    try:
+        yield log_
+    finally:
+        TG.gptq_quantize = orig
+
+
+def site_objectives(site: dict, qt=None, g_idx=None, rtn: bool = True) -> dict:
+    """A ``gptq_sites`` entry's GPTQ objective tr((W - W^) H (W - W^)^T),
+    W^ read by g_idx where there is one (the weights GPTQ solved), or that
+    of ``qt`` / ``g_idx`` on the entry's W and H; with ``rtn`` the RTN
+    objective on the same H and the Hessian diagonal's descending order
+    (the actorder permutation, dead channels pinned). In f64 on the card,
+    where there is one."""
+    from quantizers_tpu_torch.core.numerics import fake_quantize
+
+    if qt is None:
+        qt, g_idx = site["qt"], site["g_idx"]
+    args = site["args"]
+    dev = torch.device("cuda") if torch.cuda.is_available() else site["H"].device
+    w, H = site["w"].to(dev, torch.float32), site["H"].to(dev, torch.float64)
+    k = w.shape[1]
+    cols = (torch.arange(k, device=dev) // (args.group_size or k) if g_idx is None
+            else g_idx.to(dev).long())
+    q = qt.values.to(dev).float()
+    if qt.zero_point is not None:
+        q = q - qt.zero_point.to(dev).float()[:, cols]
+
+    def objective(what):
+        d = (w - what).double()
+        return float(((d @ H) * d).sum())
+    out = {"gptq": objective(q * qt.scale.to(dev).float()[:, cols])}
+    if rtn:
+        diag = torch.diagonal(H)
+        diag = torch.where(diag == 0, torch.ones_like(diag), diag)
+        out.update(rtn=objective(fake_quantize(w, args)),
+                   order=torch.argsort(-diag, stable=True).cpu())
+    return out
+
+
+def codes_apart(a, b) -> tuple:
+    """Two solves' integer codes: the cells apart, all cells, the most steps."""
+    d = (a.values.to(b.values.device).int() - b.values.int()).abs()
+    return int((d > 0).sum()), d.numel(), int(d.max())
+
+
+def one_ulp_apart(H: torch.Tensor, gen) -> torch.Tensor:
+    """H with each entry moved by one f32 ulp up or down, or left (about
+    1.2e-7 of it), symmetrically."""
+    r = torch.randint(-1, 2, H.shape, device=H.device, generator=gen).float()
+    r = torch.triu(r) + torch.triu(r, 1).t()
+    return H * (1.0 + r * 2.0 ** -23)
+
+
+def gptq_decomposed(label: str, got: list, ref: list, dev, per_layer: int = 7) -> dict:
+    """Phase 23's sites taken apart, on ``dev`` (the card), per layer: the
+    witness (each of its own problems, ``got``, solved again with H moved
+    by one f32 ulp an entry, GPTQ_WITNESS_DRAWS draws: what a rounding of H
+    alone moves on one device) and ``same_h`` (each of the CPU's problems,
+    ``ref``: its W and H, solved again: what the devices' solves alone
+    move), each with the codes apart (share, most steps) and the
+    objectives' relative spread; the devices' Hessians' largest difference
+    (of the CPU's largest entry); and the layer's objective limit
+    (``objective_limit``: the larger of GPTQ_OBJ_RTOL and
+    GPTQ_WITNESS_FACTOR times the witness's largest spread). Checks the
+    ``same_h`` solves against the limits; its solves are not main-path
+    launches, so K11's count is left as it was."""
+    from quantizers_tpu_torch.oneshot import gptq as TG
+    from quantizers_tpu_torch.ops import kernels as K
+
+    before, gen = K.gptq_block.launches, torch.Generator(device=dev).manual_seed(23)
+    layers, gidx_apart = {}, []
+    for i, (g, r) in enumerate(zip(got, ref)):
+        row = layers.setdefault(i // per_layer, {
+            key: {"apart": 0, "cells": 0, "max_steps": 0, "objective_rel": []}
+            for key in ("same_h", "witness")} | {"h_rel_apart": []})
+        base = {"same_h": site_objectives(r, rtn=False)["gptq"],
+                "witness": site_objectives(g, rtn=False)["gptq"]}
+        solves = [("same_h", r, r["H"])] + [("witness", g, one_ulp_apart(
+            g["H"].to(dev, torch.float32), gen)) for _ in range(GPTQ_WITNESS_DRAWS)]
+        for key, site, H in solves:
+            qt, gi = TG.gptq_quantize(site["w"].to(dev, torch.float32), H.to(dev, torch.float32),
+                                      site["args"], site["block_size"], site["damp"])
+            apart, cells, steps = codes_apart(qt, site["qt"])
+            mine = site_objectives(site, qt, gi, rtn=False)["gptq"]
+            c = row[key]
+            c["apart"], c["cells"] = c["apart"] + apart, c["cells"] + cells
+            c["max_steps"] = max(c["max_steps"], steps)
+            c["objective_rel"].append(abs(mine - base[key]) / base[key])
+            if key == "same_h" and ((gi is None) != (r["g_idx"] is None) or (
+                    gi is not None and not torch.equal(gi, r["g_idx"]))):
+                gidx_apart.append(i)
+        hg, hr = g["H"].to(dev, torch.float32), r["H"].to(dev, torch.float32)
+        row["h_rel_apart"].append(float((hg - hr).abs().max() / hr.abs().max()))
+    K.gptq_block.launches = before
+    for row in layers.values():
+        for key in ("same_h", "witness"):
+            c = row[key]
+            c["share"] = c["apart"] / c["cells"]
+            c["max_objective_rel"] = max(c["objective_rel"])
+        row["objective_limit"] = max(GPTQ_OBJ_RTOL,
+                                     GPTQ_WITNESS_FACTOR * row["witness"]["max_objective_rel"])
+        row["same_h"]["share_limit"] = GPTQ_WITNESS_FACTOR * row["witness"]["share"]
+    out = {"by_layer": layers, "witness_draws": GPTQ_WITNESS_DRAWS,
+           "witness_factor": GPTQ_WITNESS_FACTOR, "same_h_g_idx_apart": gidx_apart}
+    log(f"[{label}] taken apart {out}")
+    check(not gidx_apart, f"{label}: sites {gidx_apart}: the card's g_idx differs on the CPU's H")
+    for layer, row in layers.items():
+        c = row["same_h"]
+        check(c["max_objective_rel"] <= row["objective_limit"],
+              f"{label}: layer {layer}: the card's objective on the CPU's W and H differs by "
+              f"{c['max_objective_rel']:.3g} of the CPU's, over {row['objective_limit']:.3g}")
+        check(c["share"] <= c["share_limit"],
+              f"{label}: layer {layer}: on the CPU's W and H {c['share']:.3g} of the codes "
+              f"apart, over {c['share_limit']:.3g}")
+    return out
+
+
+def objectives_agree(label: str, got: list, ref: list, limits: dict, per_layer: int = 7) -> dict:
+    """The card's GPTQ sites against the CPU's, in order, each on its own
+    device's W and H: each objective below RTN's on each device and within
+    its layer's ``limits`` of the CPU's; g_idx equal wherever both devices'
+    diagonal orders (the actorder permutations) agree (counted where they do
+    not). Every site's numbers are logged before any check."""
+    check(len(got) == len(ref) and ref, f"{label}: sites {len(got)} / {len(ref)}")
+    rel, ratio, order_apart, gidx_apart, bad_gidx = [], [], [], 0, []
+    for i, (gs, rs) in enumerate(zip(got, ref)):
+        g, r = site_objectives(gs), site_objectives(rs)
+        rel.append(abs(g["gptq"] - r["gptq"]) / r["gptq"])
+        ratio.append([g["gptq"] / g["rtn"], r["gptq"] / r["rtn"]])
+        if rs["g_idx"] is not None:
+            same_order, same = torch.equal(g["order"], r["order"]), torch.equal(gs["g_idx"],
+                                                                                 rs["g_idx"])
+            if not same_order:
+                order_apart.append(i)
+            gidx_apart += not same
+            if not same and same_order:
+                bad_gidx.append(i)
+    limit = [limits[i // per_layer] for i in range(len(ref))]
+    row = {"sites": len(ref), "objective_rel_err": rel, "max_objective_rel_err": max(rel),
+           "objective_limit_by_layer": limits, "gptq_over_rtn_card_cpu": ratio,
+           "g_idx_apart": gidx_apart, "diag_orders_apart": order_apart}
+    log(f"[{label}] objectives {row}")
+    check(not bad_gidx, f"{label}: sites {bad_gidx}: g_idx differs with the same order")
+    check(max(max(r) for r in ratio) < 1.0, f"{label}: a GPTQ objective is not below RTN's")
+    over = [i for i, (e, t) in enumerate(zip(rel, limit)) if e > t]
+    check(not over, f"{label}: sites {over}: objectives differ by {[rel[i] for i in over]}")
+    return row
+
+
+def card_vs_cpu_gptq(detail, tmp: Path, dense: Path, moe: Path,
+                     devices=("cuda", "cpu")) -> None:
+    """Phase 23: ``oneshot`` with GPTQ on both devices over phase 18's
+    calibration batches, the repository's GPTQ recipe and GPTQ_G32 on the
+    first 2 layers of path F's model: the objectives, the codes apart,
+    g_idx, K11's exact launches, the sites taken apart
+    (``gptq_decomposed``), and the CPU's g32 model on the card (K1) against
+    the CPU's plain path. Then path G's first layer with GPTQ_G32 (the
+    router left bf16) on the card alone: K11's exact launches, and every
+    expert site's objective at most RTN's."""
+    from quantizers_tpu_torch.core.scheme import ActOrder
+    from quantizers_tpu_torch.models import load_hf_model
+    from quantizers_tpu_torch.oneshot import oneshot
+    from quantizers_tpu_torch.ops import kernels as K
+    from quantizers_tpu_torch.recipes import parse_recipe
+
+    batches, ids, _ = comparison_batches(tmp)
+    row = {"device": detail["device"], "batches": [list(b[0].shape) for b in batches]}
+    detail["card_vs_cpu_gptq"] = row
+    for name, recipe_name, recipe in (("gptq_w4a16_g128", "recipe_gptq_w4a16_g128", None),
+                                      ("gptq_w4a16_g32", "recipe_gptq_w4a16_g32", GPTQ_G32)):
+        label = f"card vs CPU {name}"
+        res = engine_on_both(dense, recipe_name, batches, ids, devices, recipe=recipe,
+                             cross=recipe is not None, record="gptq")
+        got, ref = (res[d] for d in devices)
+        apart = gptq_decomposed(label, got["log"], ref["log"], devices[0])
+        actorder = ref["log"][0]["args"].actorder != ActOrder.NONE
+        r = {"layers": 2, "seconds": {d: res[d]["s"] for d in devices},
+             "k11_launches_card": got["calibration"]["gptq_block"],
+             "codes": int_codes_agree(
+                 label, got["records"], ref["records"], 14, one_step=lambda key: False,
+                 share=lambda layer: 1.0 if actorder else GPTQ_CODE_SHARE[min(layer, 1)]),
+             **objectives_agree(label, got["log"], ref["log"],
+                                {layer: row["objective_limit"]
+                                 for layer, row in apart["by_layer"].items()}),
+             "taken_apart": apart}
+        check(got["calibration"]["gptq_block"] == 2 * GPTQ_BLOCKS_PER_LAYER,
+              f"{label}: K11 launched {got['calibration']['gptq_block']} times")
+        check(got["flash"] > 0, f"{label}: the flash kernel never ran in calibration")
+        if recipe is not None:
+            check(got["cross_launches"]["w4_matmul"] > 0, f"{label}: the card's forward never ran K1")
+            r["logits"] = logits_agree(label, got["cross_logits"], ref["logits"])
+        r["own_models_logits"] = logits_apart(got["logits"], ref["logits"])
+        row[name] = r
+        log(f"[{label}] {r}")
+        del res, got, ref
+
+    # path G's first layer, the experts too, on the card alone
+    label = "card GPTQ g32 MoE"
+    spec, params = load_hf_model(moe, device=devices[0])
+    E = spec.num_experts
+    moe_recipe = json.loads(json.dumps(GPTQ_G32))
+    moe_recipe["quant_stage"]["quant_modifiers"]["GPTQModifier"]["ignore"] += ["re:.*mlp\\.gate$"]
+    D, Fe = spec.hidden_size, spec.moe_intermediate_size
+
+    def blocks(k):
+        return -(-k // GPTQ_BLOCK)
+    want = (3 * blocks(D) + blocks(spec.q_dim)) + E * (2 * blocks(D) + blocks(Fe))
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    with gptq_sites() as sites:
+        res = oneshot(spec, params, parse_recipe(moe_recipe), batches[:1], device=devices[0])
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    check(len(res.records) == 4 + 3 * E, f"{label}: {len(res.records)} records")
+    check(counts["gptq_block"] == want, f"{label}: K11 launched {counts['gptq_block']}, want {want}")
+    seconds = time.perf_counter() - t0
+    del res, params
+    experts = [site_objectives(s) for s in sites[4:]]
+    check(len(experts) == 3 * E, f"{label}: {len(experts)} expert solves")
+    worst = max(s["gptq"] / s["rtn"] for s in experts)
+    check(worst <= 1.0, f"{label}: an expert's GPTQ objective is {worst:.4g} of RTN's")
+    row["moe_layer0_g32"] = {"seconds": seconds, "k11_launches": counts["gptq_block"],
+                             "k11_launches_want": want, "expert_sites": len(experts),
+                             "max_expert_gptq_over_rtn": worst,
+                             "attention_gptq_over_rtn": [
+                                 (o := site_objectives(s))["gptq"] / o["rtn"] for s in sites[:4]]}
+    log(f"[{label}] {row['moe_layer0_g32']}")
+    del sites
+    torch.cuda.empty_cache()
+
+
 def oneshot_phases(detail) -> dict:
-    """Phases 16-21: paths F and G (slice 6 and the RTN oneshot engine), H
-    and I (AWQ and W8A8 on F's bf16 checkpoint), from bf16 checkpoints to
-    served compressed ones, and the engine card against CPU;
+    """Phases 16-23: paths F and G (slice 6 and the RTN oneshot engine), H,
+    I and J (AWQ, W8A8 and GPTQ on F's bf16 checkpoint), from bf16
+    checkpoints to served compressed ones, and the engine card against CPU;
     ``detail["device"]`` holds the card's nvidia-smi line. The checkpoints,
     the calibration cache and HF's caches live in a temporary directory,
     removed at the end; nothing is fetched. Returns path I's drive."""
@@ -3417,12 +4070,14 @@ def oneshot_phases(detail) -> dict:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_oneshot_") as tmp:
         os.environ["HF_HOME"] = str(Path(tmp) / "hf_home")
         bf16, two = oneshot_dense_phase(detail, Path(tmp))
-        oneshot_awq_phase(detail, Path(tmp), bf16)
-        drive = oneshot_w8a8_phase(detail, Path(tmp), bf16)
+        oneshot_awq_phase(detail, Path(tmp), two)
+        drive = oneshot_w8a8_phase(detail, Path(tmp), two)
+        oneshot_gptq_phase(detail, Path(tmp), bf16)
         shutil.rmtree(bf16)
         one = oneshot_moe_phase(detail, Path(tmp))
         card_vs_cpu_oneshot(detail, Path(tmp), two, one)
         card_vs_cpu_slice7(detail, Path(tmp), two, one)
+        card_vs_cpu_gptq(detail, Path(tmp), two, one)
     return drive
 
 
@@ -3491,6 +4146,7 @@ def main() -> int:
     s5 = slice5_kernels(gen, detail)
     offset_views(gen, detail)
     w8a8_rows = w8a8_kernels(gen, detail)
+    gptq_rows = gptq_kernels(gen, detail)
     phase_s = detail["phase_s"] = {"kernels": time.perf_counter() - t_start}
 
     def lap(name: str) -> None:
@@ -3540,12 +4196,13 @@ def main() -> int:
     card_vs_cpu_mla(detail, synthetic_text())
     lap("path_E")
 
-    # phases 16-21: paths F, H, I and G, and the engine card against CPU
+    # phases 16-23: paths F, H, I, J and G, and the engine card against CPU
     drive_i = oneshot_phases(detail)
     lap("oneshot")
 
     # phase 15: the kernels line (w4, the NVFP4 and the fp8 matmuls: the four
-    # calls of one decoder layer at m = 8, summed)
+    # calls of one decoder layer at m = 8, summed; K11: the 208 launches of
+    # one Qwen3-4B layer's GPTQ solve, summed)
     def total(rows, key):
         return sum(r[key] for r in rows)
 
@@ -3568,6 +4225,7 @@ def main() -> int:
 
     src = "quantizers_tpu_torch/csrc/"
     w8_all = dict(w8_rows, **s2["w8_matmul_f32"])
+    k11_layer = detail["path_J"]["gptq_w4a16_g32"]["k11_layer"]
     kernels_line = [
         {"name": "w4_matmul", "route": "cuda", "source": src + "w4_matmul.cu",
          "replaces": "quantizers_tpu/ops/kernels.py:159", "launches": counts["w4_matmul"],
@@ -3638,9 +4296,19 @@ def main() -> int:
          "max_abs_err": max(r["max_abs_err"] for r in w8a8_rows.values() if "max_abs_err" in r),
          "tol": 0.0, **served_sum(w8a8_rows, 8), "bound_by": "bytes",
          **served_sum(w8a8_rows, 1024, "_m1024"), "bound_by_m1024": "operations"},
+        # K11: path J's symmetric g32 run; its layer 1's 208 launches as
+        # that run traced them, the plain version on the same inputs
+        {"name": "gptq_block", "route": "cuda", "source": src + "gptq_block.cu",
+         "replaces": "quantizers_tpu/oneshot/gptq.py:61",
+         "launches": detail["path_J"]["gptq_w4a16_g32"]["oneshot"]["launches"]["gptq_block"],
+         "path": "J calibration solve",
+         "max_abs_err": max(r["max_abs_err"] for r in gptq_rows.values() if "max_abs_err" in r),
+         "tol": 0.0, **{key: k11_layer[key] for key in ("ms", "dev_ms", "plain_ms", "bound_ms")},
+         "bound_by": "bytes", "library_ms": None},
     ]
     check(all(k["launches"] > 0 for k in kernels_line), "a kernel never launched on its path")
-    check(kernels_line[-1]["max_abs_err"] == 0.0, "w8a8_matmul: not bit-exact")
+    check(kernels_line[-2]["max_abs_err"] == 0.0, "w8a8_matmul: not bit-exact")
+    check(kernels_line[-1]["max_abs_err"] == 0.0, "gptq_block: not bit-exact")
     detail["total_s"] = time.perf_counter() - t_start
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_detail.json").write_text(json.dumps(detail, indent=1))

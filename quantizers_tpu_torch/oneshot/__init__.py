@@ -5,9 +5,9 @@ Counterpart of ``quantizers_tpu/oneshot`` (the reference's
 layer-sequential calibration loop over the port's transformer, with
 modifiers as weight / activation transforms. Ported: the engine, RTN
 (``QuantizationModifier``) with static activation scales and FP8 KV-cache
-scales, AWQ (``AWQModifier``) and SmoothQuant (``SmoothQuantModifier``).
-GPTQ, AutoRound and the data-free ``model_free_ptq`` wait for ROADMAP queue
-1, slices 7d and 7f.
+scales, GPTQ (``GPTQModifier``, its column elimination on the K11 kernel),
+AWQ (``AWQModifier``) and SmoothQuant (``SmoothQuantModifier``). AutoRound
+and the data-free ``model_free_ptq`` wait for ROADMAP queue 1, slice 7f.
 """
 
 from .awq import AWQModifier  # noqa: F401
@@ -17,5 +17,6 @@ from .engine import (  # noqa: F401
     oneshot,
     streaming_peak_bytes,
 )
+from .gptq import GPTQModifier, gptq_quantize  # noqa: F401
 from .modifiers import LayerCtx, Modifier, RTNModifier  # noqa: F401
 from .smoothquant import SmoothQuantModifier  # noqa: F401

@@ -59,6 +59,7 @@ from ..models.config import ModelSpec
 from ..models.transformer import apply_layer, embed, tree_to
 from ..recipes import ModifierSpec, Recipe
 from .awq import AWQModifier
+from .gptq import GPTQModifier
 from .modifiers import LayerCtx, Modifier, RTNModifier, SiteResult, _to_host
 from .sites import LinearSite, layer_sites, scheme_for_site
 from .smoothquant import SmoothQuantModifier
@@ -67,12 +68,12 @@ logger = logging.getLogger(__name__)
 
 #: the modifiers whose algorithms are not ported yet, and the ROADMAP part
 #: (queue 1, slice 7) that brings each
-_LATER = {"GPTQModifier": "7d", "AutoRoundModifier": "7f"}
+_LATER = {"AutoRoundModifier": "7f"}
 
 
 def _build_modifier(spec: ModifierSpec) -> Modifier:
-    table = {"QuantizationModifier": RTNModifier, "AWQModifier": AWQModifier,
-             "SmoothQuantModifier": SmoothQuantModifier}
+    table = {"QuantizationModifier": RTNModifier, "GPTQModifier": GPTQModifier,
+             "AWQModifier": AWQModifier, "SmoothQuantModifier": SmoothQuantModifier}
     if spec.name in _LATER:
         raise NotImplementedError(
             f"{spec.name} is not ported yet: ROADMAP queue 1, slice {_LATER[spec.name]}; "

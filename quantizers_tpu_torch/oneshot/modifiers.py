@@ -67,27 +67,37 @@ def _to_host(qt: QuantizedTensor) -> QuantizedTensor:
 def build_site_result(site: LinearSite, args: QuantizationArgs, group: str,
                       w_nk: Optional[torch.Tensor] = None,
                       w_enk: Optional[torch.Tensor] = None,
+                      g_idx: Optional[torch.Tensor] = None,
+                      qt: Optional[QuantizedTensor] = None,
+                      qt_per_expert: Optional[List[QuantizedTensor]] = None,
                       act_args: Optional[QuantizationArgs] = None) -> SiteResult:
     """Quantize a site's weights (``w_nk``, or ``w_enk`` for an expert
     stack) and assemble the new linear and its on-disk records, on the
-    weights' device. ``act_args`` (the scheme's ``input_activations``) is
-    recorded on the new linear as the JAX package records it."""
+    weights' device. Callers that solved their own codes (GPTQ) pass them
+    as ``qt`` / ``qt_per_expert`` instead, with ``g_idx`` (an actorder
+    permutation) for the record. The new linear is built from the codes and
+    scales alone with contiguous groups, as the JAX package builds it (it
+    reads no ``g_idx``: ROADMAP queue 3). ``act_args`` (the scheme's
+    ``input_activations``) is recorded on the new linear as the JAX package
+    records it."""
     if site.is_expert:
         el: ExpertLinears = site.get()
         new_lins: List[QuantLinear] = []
         records: Dict[str, CompressedParam] = {}
         for e in range(el.num_experts):
-            qt_e = quantize(w_enk[e], args)
+            qt_e = qt_per_expert[e] if qt_per_expert is not None else quantize(w_enk[e], args)
             new_lins.append(from_quantized(qt_e, args, bias=el.expert(e).bias,
                                            act_args=act_args))
             records[site.expert_prefix(e)] = CompressedParam(qt=qt_e, args=args, group=group)
         return SiteResult(new_linear=ExpertLinears.stack(new_lins), records=records)
 
     lin: QuantLinear = site.get()
-    qt = quantize(w_nk, args)
+    if qt is None:
+        qt = quantize(w_nk, args)
     new_lin = from_quantized(qt, args, bias=lin.bias, act_args=act_args)
-    return SiteResult(new_linear=new_lin,
-                      records={site.prefix: CompressedParam(qt=qt, args=args, group=group)})
+    rec = CompressedParam(qt=qt, args=args, group=group,
+                          g_idx=None if g_idx is None else g_idx.cpu())
+    return SiteResult(new_linear=new_lin, records={site.prefix: rec})
 
 
 # ---------------------------------------------------------------------------

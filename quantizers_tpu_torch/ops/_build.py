@@ -26,7 +26,7 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_kernels_build"
 SOURCES = ("w4_matmul.cu", "w8_matmul.cu", "decode_attention.cu", "nvfp4_matmul.cu",
            "moe_slot_ffn.cu", "moe_slot_gu_ffn.cu", "flash_attention.cu", "fp8_matmul.cu",
-           "mla_decode_attention.cu", "w8a8_matmul.cu")
+           "mla_decode_attention.cu", "w8a8_matmul.cu", "gptq_block.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -61,6 +61,10 @@ SIGNATURES = {
                                  ctypes.c_float, _P),
     # xq, w8, sx, sw, out, ws (or NULL), M, K, N, sw_f32, out_f32, splits, stream
     "qtt_w8a8_matmul": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # w, ldw, u, ldu, scale, zp (or NULL), groups, col_group, q, err, N, bs, qmin, qmax,
+    # SMs, stream
+    "qtt_gptq_block": (_P, _L, _P, _L, _P, _P, _I, _P, _P, _P, _I, _I, ctypes.c_float,
+                       ctypes.c_float, _I, _P),
 }
 
 

@@ -23,7 +23,9 @@ rows exactly. The matmul, slot, flash and both decode-attention kernels
 sum in a fixed order, so a second call gives the same bits. The W8A8 int8
 GEMM (K10) sums its int8 products exactly, so it equals its plain version
 (float64 sums, exact below 2^53) bit for bit, as do the dynamic activation
-quantizers on the card and on the CPU.
+quantizers on the card and on the CPU. GPTQ's column elimination (K11)
+rounds each operation once, as its plain version's separate kernels do, so
+the two agree bit for bit through a whole solve.
 """
 
 import math
@@ -1200,3 +1202,145 @@ def test_dynamic_fp8_saturates_on_the_card(gen):
     got = tn._to_fp8_saturated(q).float().cpu()
     assert got[:8].tolist() == [1.0, 288.0, 448.0, 448.0, -448.0, 448.0, 448.0, -448.0]
     assert bool(got[8].isnan())
+
+
+# ---------------------------------------------------------------------------
+# K11: GPTQ's column elimination (csrc/gptq_block.cu)
+# ---------------------------------------------------------------------------
+
+#: (N, K, symmetric, group, actorder): path J's five shapes (symmetric g32),
+#: the repository recipe's asymmetric g128 with actorder group, actorder
+#: weight, K not a multiple of 128 (padded to one), a block under 128, a
+#: block width that is not a multiple of 4 (padded by the wrapper)
+GPTQ_CASES = [(4096, 2560, True, 32, None), (1024, 2560, True, 32, None),
+              (2560, 4096, True, 32, None), (9728, 2560, True, 32, None),
+              (2560, 9728, True, 32, None), (1024, 2560, False, 128, "group"),
+              (1024, 4096, True, 128, "weight"), (1024, 2600, False, 32, "group"),
+              (256, 96, True, 32, None), (64, 50, False, 32, None), (33, 128, False, 32, None)]
+
+
+def _gptq_problem(gen, n, k):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    w = torch.randn((n, k), device="cuda", generator=gen) * 0.02
+    x = torch.randn((min(2 * k, 4096), k), device="cuda", generator=gen)
+    x[:, ::3] *= 10.0
+    return w, 2.0 * (x.t() @ x)
+
+
+def _gptq_args(sym, g, actorder):
+    from quantizers_tpu_torch.core.scheme import QuantizationArgs
+
+    return QuantizationArgs.from_dict({"num_bits": 4, "type": "int", "symmetric": sym,
+                                       "strategy": "group", "group_size": g,
+                                       "actorder": actorder})
+
+
+@pytest.mark.parametrize("n,k,sym,g,actorder", GPTQ_CASES)
+def test_gptq_solve_matches_plain_bit_for_bit(gen, monkeypatch, n, k, sym, g, actorder):
+    """A whole ``gptq_quantize`` solve with K11 for every block against
+    ``gptq_solve_plain`` on the same inputs: the codes equal bit for bit (a
+    block's Err that differed anywhere would move the later blocks' codes),
+    and again on a second call; K11 launched once a block."""
+    from quantizers_tpu_torch.oneshot import gptq as TG
+
+    w, H = _gptq_problem(gen, n, k)
+    solves, orig = [], TG._gptq_solve
+
+    def recording(*a, **kw):
+        solves.append((a, kw, orig(*a, **kw)))
+        return solves[-1][2]
+    monkeypatch.setattr(TG, "_gptq_solve", recording)
+    before = K.gptq_block.launches
+    TG.gptq_quantize(w, H, _gptq_args(sym, g, actorder))
+    (a, kw, got), = solves
+    assert K.gptq_block.launches - before == a[0].shape[1] // kw["block_size"]
+    ref = TG.gptq_solve_plain(*a, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, ref), int((got != ref).sum())
+    assert torch.equal(orig(*a, **kw), got)
+
+
+@pytest.mark.parametrize("sym", [True, False])
+def test_gptq_block_matches_plain_bit_for_bit(gen, sym):
+    """One launch: Q and Err against the plain version's, bit for bit, at
+    path J's widest N, with NaN staying NaN through the clamp."""
+    from quantizers_tpu_torch.oneshot import gptq as TG
+
+    args = _gptq_args(sym, 32, None)
+    w, H = _gptq_problem(gen, 9728, 128)
+    w[5, 7] = float("nan")
+    u = TG._ufactor(H, 0.01)
+    scale, zp, _ = TG._solve_qparams(torch.nan_to_num(w), args)
+    zp = None if sym else zp
+    cg = (torch.arange(128, device="cuda") // 32).to(torch.int32)
+    q, err = K.gptq_block(w, u, scale, zp, cg, *args.qrange)
+    q_ref, err_ref = K.gptq_block_plain(w, u, scale, zp, cg, *args.qrange)
+    torch.cuda.synchronize()
+    assert torch.equal(q.isnan(), q_ref.isnan()) and bool(q[5, 7].isnan())
+    assert torch.equal(q.nan_to_num(), q_ref.nan_to_num())
+    assert torch.equal(err.isnan(), err_ref.isnan())
+    assert torch.equal(err.nan_to_num(), err_ref.nan_to_num())
+
+
+def test_gptq_block_offset_view_and_unaligned_c_entry(gen):
+    """A W block at an unaligned base is copied to an aligned one before the
+    launch (the same bits as the aligned call); the C entry refuses an
+    unaligned W with an error and launches nothing."""
+    from quantizers_tpu_torch.ops import _build
+
+    w = torch.randn((64, 128), device="cuda", generator=gen)
+    u = torch.eye(128, device="cuda") + torch.triu(
+        torch.rand((128, 128), device="cuda", generator=gen), 1) * 0.1
+    scale = torch.rand((64, 4), device="cuda", generator=gen) * 0.5 + 0.1
+    cg = (torch.arange(128, device="cuda") // 32).to(torch.int32)
+    buf = torch.empty(w.numel() + 3, device="cuda")
+    wo = buf[3:].view(w.shape)
+    wo.copy_(w)
+    assert wo.data_ptr() % 16
+    a, b = K.gptq_block(wo, u, scale, None, cg, -8.0, 7.0), K.gptq_block(w, u, scale, None, cg,
+                                                                         -8.0, 7.0)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    q, e = torch.empty_like(w), torch.empty_like(w)
+    rc = _build.load().qtt_gptq_block(
+        wo.data_ptr(), 128, u.data_ptr(), 128, scale.data_ptr(), None, 4, cg.data_ptr(),
+        q.data_ptr(), e.data_ptr(), 64, 128, -8.0, 7.0,
+        torch.cuda.get_device_properties(0).multi_processor_count,
+        torch.cuda.current_stream().cuda_stream)
+    assert rc != 0
+
+
+@pytest.mark.parametrize("k", [512, 2560])
+def test_gptq_device_factor_matches_the_host_factor(gen, k):
+    """``_ufactor`` (f32 cuSOLVER Cholesky and triangular solve on the card)
+    against ``_ufactor_host`` (f64 LAPACK, rounded to f32): within 1e-4 of
+    the largest |U| (f32 roundoff grows with K and the damped Hessian's
+    condition number), upper-triangular."""
+    from quantizers_tpu_torch.oneshot import gptq as TG
+
+    _, H = _gptq_problem(gen, 8, k)
+    got = TG._ufactor(H, 0.01).cpu()
+    want = torch.from_numpy(TG._ufactor_host(H.cpu().numpy(), 0.01))
+    assert torch.equal(got, torch.triu(got))
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+def test_gptq_failed_device_factor_falls_back_and_caches_nothing(gen, monkeypatch):
+    """A device factor that raises (as cuSOLVER does on an out-of-memory)
+    lands in the host path: counted, logged, not cached, and the codes
+    those of the forced host path (``QTPU_GPTQ_FACTOR=host``), bit for bit."""
+    from quantizers_tpu_torch.oneshot import gptq as TG
+
+    w, H = _gptq_problem(gen, 1024, 2560)
+    args = _gptq_args(True, 32, None)
+    monkeypatch.setenv("QTPU_GPTQ_FACTOR", "host")
+    want, _ = TG.gptq_quantize(w, H, args)
+    monkeypatch.delenv("QTPU_GPTQ_FACTOR")
+
+    def boom(*a, **kw):
+        raise torch.cuda.OutOfMemoryError("CUDA out of memory (raised by the test)")
+    monkeypatch.setattr(torch.linalg, "cholesky_ex", boom)
+    before, cache = TG.host_factor_fallbacks, {}
+    got, _ = TG.gptq_quantize(w, H, args, ufactor_cache=cache, cache_key=("site", None))
+    assert TG.host_factor_fallbacks == before + 1 and cache == {}
+    assert got.values.is_cuda and torch.equal(got.values, want.values)

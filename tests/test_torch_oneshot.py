@@ -215,7 +215,7 @@ def test_bad_offload_refuses(models):
                 [], offload="disk", device="cpu")
 
 
-@pytest.mark.parametrize("name,slice_", [("GPTQModifier", "7d"), ("AutoRoundModifier", "7f")])
+@pytest.mark.parametrize("name,slice_", [("AutoRoundModifier", "7f")])
 def test_unported_modifiers_name_their_slice(name, slice_, models):
     _, jparams, spec = models["dense"]
     recipe = parse_recipe({"quant_stage": {"quant_modifiers": {
@@ -224,12 +224,14 @@ def test_unported_modifiers_name_their_slice(name, slice_, models):
         oneshot(spec, params_from_numpy(jparams, device="cpu"), recipe, [], device="cpu")
 
 
-@pytest.mark.parametrize("name", ["AWQModifier", "SmoothQuantModifier"])
+@pytest.mark.parametrize("name", ["AWQModifier", "SmoothQuantModifier", "GPTQModifier"])
 def test_ported_modifiers_run(name, models):
-    """AWQ and SmoothQuant (slice 7e) run where they used to be refused:
-    AWQ compresses every linear, SmoothQuant only transforms (its paired RTN
-    compresses), and with no calibration batch both leave the folds out, as
-    in the JAX package (tests/test_torch_awq.py holds them against it)."""
+    """AWQ and SmoothQuant (slice 7e) and GPTQ (slice 7d) run where they
+    used to be refused: AWQ and GPTQ compress every linear, SmoothQuant only
+    transforms (its paired RTN compresses), and with no calibration batch
+    AWQ and SmoothQuant leave the folds out and GPTQ falls back to RTN, as in
+    the JAX package (tests/test_torch_awq.py and test_torch_gptq.py hold
+    them against it)."""
     jspec, jparams, spec = models["dense"]
     mods = {name: {"config_groups": {"group_0": W4G32}}}
     if name == "SmoothQuantModifier":
@@ -242,7 +244,8 @@ def test_ported_modifiers_run(name, models):
         jres = joneshot(jspec, _clone(jparams), jparse(recipe), bs)
         assert sorted(res.records) == sorted(jres.records)
         assert len(res.records) == spec.num_layers * 7
-    # no batch: no statistic, so no fold: RTN's codes of the bf16 weights
+    # no batch: no statistic, so no fold (no Hessian): RTN's codes of the
+    # bf16 weights
     for key, cp in jres.records.items():
         np.testing.assert_array_equal(res.records[key].qt.values.numpy(),
                                       np.asarray(cp.qt.values), err_msg=key)
