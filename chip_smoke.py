@@ -27,9 +27,9 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
 6. paths B and C at 8 layers: the packed and int8 expert layouts (slot
    kernel at decode, NVFP4 matmul in a row prefill) and dense NVFP4
    Qwen3-4B in both NVFP4 layouts, each with its launch counts checked;
-7. card against CPU: slice 1 and path A at 2 layers, full width, through
-   the same converted weights on both devices, prefill plus 15
-   teacher-forced decode steps (path A: router choices compared too);
+7. card against CPU: slice 1 and path A at CVC_LAYERS (1) layer, full
+   width, through the same converted weights on both devices, prefill plus
+   15 teacher-forced decode steps (path A: router choices compared too);
 8. batcher, slice 1: 12 requests at full width;
 9. path D (slice 3's main path), checkpoints in and perplexity out: a
    Qwen3-4B-shaped W4A16 g32 checkpoint at full width and depth (random
@@ -48,8 +48,8 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
     matmul and the MLA decode kernel), the fraction of the bytes bound and
     a profiled window;
 13. 12 requests through ``ContinuousBatcher`` on path E's params;
-14. card against CPU, path E at 2 layers, full width: logits and greedy
-    tokens with the bf16 latent cache and with the fp8 one, and one
+14. card against CPU, path E at CVC_LAYERS (1) layer, full width: logits
+    and greedy tokens with the bf16 latent cache and with the fp8 one, and one
     no-cache perplexity window (the flash kernel at head dim 256);
 16. path F (slice 6 and the RTN oneshot engine): a full-width, full-depth
     Qwen3-4B bf16 HF checkpoint (random weights from a seeded generator)
@@ -94,7 +94,21 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
     with each Hessian entry moved by one f32 ulp), and the g32 one on path
     G's first layer on the card alone (K11's exact launches, every expert's
     objective at most RTN's);
-15. after phase 23: one JSON line of per-kernel numbers, then the card's
+24. path K (slice 7f): the first 2 layers of path F's bf16 checkpoint
+    through ``do_oneshot`` with ``recipe_ar_w4a16g32.yaml`` (AutoRound, 200
+    steps, W4A16 g32 on the MLP), 3 records a layer, exact K4 and K1
+    launches in calibration, then ``cli/serve.main`` (K1, K2, K3);
+25. path L (slice 7f): path F's full-depth bf16 checkpoint through
+    ``cli/model_free.main`` with FP8_BLOCK and the reference's
+    GLM-4.7-Flash-FP8 ignore policy (252 tensors), then ``cli/serve.main``
+    and a drive with exact launches (K9, K2, K3);
+26. card against CPU for slice 7f: AutoRound on layer 0's gate_proj cut to
+    256 output channels, on the rows the CPU's capture keeps, held by its
+    loss and its codes against a one-device witness (each device re-solving
+    its own problem with X one f32 ulp apart); ``model_free`` FP8_BLOCK and
+    W4A16_G32 on the first 2 layers of path F's model, every tensor equal
+    bit for bit;
+15. after phase 26: one JSON line of per-kernel numbers, then the card's
     nvidia-smi line, then the final ``{"ok": true, ...}`` line.
 
 Longer per-shape numbers go to ``chiprun_out/chip_smoke_detail.json``.
@@ -169,11 +183,16 @@ RTOL = {"w4_matmul": 1e-2, "w8_matmul": 1e-2, "decode_attention": 2e-2,
         "moe_slot_gu_ffn": 1e-2, "flash_attention": 2e-2, "fp8_matmul": 1e-2,
         "mla_decode_attention": 2e-2}
 #: card against CPU, logits: f32 sums in other orders and cuBLAS for prefill
-#: move a few bf16 roundings of the activations over two layers. Largest
+#: move a few bf16 roundings of the activations over a layer or two. Largest
 #: |err| within 2e-2 of the largest |logit| (2.5 bf16 ulps there), and each
 #: position's error norm within 2e-2 of its logits' norm
 LOGIT_RTOL = 2e-2
 LOGIT_NORM_RTOL = 2e-2
+#: the depth of phases 7 and 14 (card against CPU for slice 1, path A and
+#: path E): 1 layer. With 2 the whole script took 1,273.5 s on a slower
+#: H100 host, past its 1,200 s limit, the CPU sides of these two phases
+#: 167.2 s of it
+CVC_LAYERS = 1
 #: the card may pick another greedy token than the CPU only where the CPU's
 #: top two logits lie within this many bf16 ulps of the top one
 TIE_ULPS = 2
@@ -737,7 +756,7 @@ def card_vs_cpu(detail, devices=("cuda", "cpu")):
     from quantizers_tpu_torch.models import KVCache, ModelSpec, forward
     from quantizers_tpu_torch.serve import serving_layout
 
-    spec = ModelSpec(**dict(GEOMETRY, num_layers=2))
+    spec = ModelSpec(**dict(GEOMETRY, num_layers=CVC_LAYERS))
     rng = np.random.default_rng(1234)
     D, Ff = spec.hidden_size, spec.intermediate_size
 
@@ -789,8 +808,8 @@ def card_vs_cpu(detail, devices=("cuda", "cpu")):
         log(f"[card-vs-cpu] {dev}: {time.perf_counter() - t0:.1f} s")
         del p, caches
     got, ref = (out[d] for d in devices)
-    detail["card_vs_cpu"] = {"layers": 2, "prefill": [B, T], "decode_steps": n_dec - 1,
-                             **logits_agree("card-vs-cpu", got, ref)}
+    detail["card_vs_cpu"] = {"layers": spec.num_layers, "prefill": [B, T],
+                             "decode_steps": n_dec - 1, **logits_agree("card-vs-cpu", got, ref)}
 
 
 # ---------------------------------------------------------------------------
@@ -1516,8 +1535,8 @@ def side_paths_phase(gen, detail) -> dict:
 
 
 def card_vs_cpu_moe(detail, devices=("cuda", "cpu")):
-    """Path A at 2 layers, full width, through the same converted weights
-    and the same (w8pc) layout on both devices: prefill 2 x 16 (the loop
+    """Path A at CVC_LAYERS layers, full width, through the same converted
+    weights and the same (w8pc) layout on both devices: prefill 2 x 16 (the loop
     over every expert), then 15 teacher-forced decode steps (the slot path).
     The CPU runs first. Each of the card's router decisions is compared
     with the CPU's: a token whose top-k differs must be a near-tie on the
@@ -1527,7 +1546,7 @@ def card_vs_cpu_moe(detail, devices=("cuda", "cpu")):
     from quantizers_tpu_torch.models import KVCache, ModelSpec, forward
     from quantizers_tpu_torch.serve import serving_layout
 
-    spec = ModelSpec(**dict(MOE_GEOMETRY, num_layers=2))
+    spec = ModelSpec(**dict(MOE_GEOMETRY, num_layers=CVC_LAYERS))
     rng = np.random.default_rng(4321)
     D, E, Fe = spec.hidden_size, spec.num_experts, spec.moe_intermediate_size
 
@@ -2291,8 +2310,8 @@ def mla_batcher_phase(spec, params, gen, detail):
 
 
 def card_vs_cpu_mla(detail, text: str, devices=("cuda", "cpu")):
-    """Path E at 2 layers, full width: the same FP8_BLOCK weights (made and
-    quantized on the CPU) laid out on each device. Prefill 2 x 16 plus 15
+    """Path E at CVC_LAYERS layers, full width: the same FP8_BLOCK weights
+    (made and quantized on the CPU) laid out on each device. Prefill 2 x 16 plus 15
     teacher-forced steps with the bf16 latent cache (K9 and K8 on the card)
     and again with the fp8 cache (the plain attention path on both); then
     one no-cache perplexity call over a (1, 512) window (K9 at m 512 and K4
@@ -2303,7 +2322,7 @@ def card_vs_cpu_mla(detail, text: str, devices=("cuda", "cpu")):
     from quantizers_tpu_torch.serve import perplexity, serving_layout
     from quantizers_tpu_torch.serve.engine import token_logprobs
 
-    spec = ModelSpec(**dict(MLA_GEOMETRY, num_layers=2))
+    spec = ModelSpec(**dict(MLA_GEOMETRY, num_layers=CVC_LAYERS))
     raw = build_fp8_mla_params(spec, torch.Generator().manual_seed(4242))
     B, T, n_dec = 2, 16, 16
     ids = np.random.default_rng(77).integers(1, spec.vocab_size, (B, T + n_dec))
@@ -2765,22 +2784,28 @@ def records_agree(label: str, got: dict, ref: dict, n_records: int) -> dict:
     return row
 
 
-def comparison_batches(tmp: Path) -> tuple:
-    """The card-against-CPU oneshot checks' calibration (phases 18, 21 and
-    23): the fixture set's first 8 rows as two (4, 256) batches, the logits'
-    ids (the last batch's first row), and its first row alone (the
-    experts-only AWQ searches all 128 experts at full width: one row keeps
-    its CPU side's loss products small), from the calibration cache that
+def fixture_rows(tmp: Path) -> list:
+    """The fixture set's tokenized rows (11), from the calibration cache that
     path F's ``do_oneshot`` built."""
     from quantizers_tpu_torch.data import ByteTokenizer, CalibrationSet, CalibrationSetConfig
-    from quantizers_tpu_torch.oneshot import make_batches
 
     cfg = CalibrationSetConfig.from_file(str(QUICK_SET))
     cache = str(tmp / "calibration_cache")
     with contextlib.chdir(ROOT):
         calib = (CalibrationSet.from_cache(cfg, cache) if CalibrationSet.is_cached(cfg, cache)
                  else CalibrationSet.from_config(cfg, cache))
-        rows = [r["input_ids"] for r in calib.get_tokenized(ByteTokenizer())]
+        return [r["input_ids"] for r in calib.get_tokenized(ByteTokenizer())]
+
+
+def comparison_batches(tmp: Path) -> tuple:
+    """The card-against-CPU oneshot checks' calibration (phases 18, 21 and
+    23): the fixture set's first 8 rows as two (4, 256) batches, the logits'
+    ids (the last batch's first row), and its first row alone (the
+    experts-only AWQ searches all 128 experts at full width: one row keeps
+    its CPU side's loss products small)."""
+    from quantizers_tpu_torch.oneshot import make_batches
+
+    rows = fixture_rows(tmp)
     batches = make_batches(rows[:8], max_seq_length=256, batch_size=4)[:2]
     return batches, batches[-1][0][:1], make_batches(rows[:1], max_seq_length=256, batch_size=1)
 
@@ -3100,13 +3125,14 @@ class W8A8Shapes:
         return False
 
 
-def calibration_launches(spec, shapes, forwards: int, matmul: str, every_m: bool) -> dict:
+def calibration_launches(spec, shapes, forwards: int, matmul: str, every_m: bool,
+                         linears: int = 7) -> dict:
     """The exact launches of a dense model's calibration: the flash kernel
     once a no-cache forward whose shape it takes (``forwards`` a layer and
     batch: 2 with a capture pass, the propagate alone 1), and ``matmul``
-    (the quantized linears' kernel) on the propagate forward's 7 projections
-    a layer, at every row count (``every_m``: W8A8) or up to
-    KERNEL_MAX_ROWS."""
+    (the quantized linears' kernel) on the propagate forward's ``linears``
+    quantized projections a layer (7: all of them), at every row count
+    (``every_m``: W8A8) or up to KERNEL_MAX_ROWS."""
     from quantizers_tpu_torch.ops import flash
     from quantizers_tpu_torch.ops.dispatch import KERNEL_MAX_ROWS
 
@@ -3119,7 +3145,7 @@ def calibration_launches(spec, shapes, forwards: int, matmul: str, every_m: bool
                         for B, T in shapes)
     matmul_batches = sum(every_m or B * T <= KERNEL_MAX_ROWS for B, T in shapes)
     return expect(**{"flash_attention": forwards * spec.num_layers * flash_batches,
-                     matmul: 7 * spec.num_layers * matmul_batches})
+                     matmul: linears * spec.num_layers * matmul_batches})
 
 
 def oneshot_awq_phase(detail, tmp: Path, bf16: Path) -> None:
@@ -3153,37 +3179,44 @@ def oneshot_awq_phase(detail, tmp: Path, bf16: Path) -> None:
     shutil.rmtree(out)
 
 
-def w8a8_per_layer(params) -> int:
-    """W8A8 linears in the first layer of a served params tree."""
+def served_linears(params, matmul: str) -> int:
+    """The linears of the first layer of a served params tree that
+    ``matmul`` computes: W8A8 ones for K10, fp8 ones for K9."""
     from quantizers_tpu_torch.ops.dispatch import is_w8a8
     from quantizers_tpu_torch.ops.linear import QuantLinear
 
+    takes = {"w8a8_matmul": is_w8a8, "fp8_matmul": lambda lin: lin.kind == "fp8"}[matmul]
+
     def walk(t):
         if isinstance(t, QuantLinear):
-            return int(is_w8a8(t))
+            return int(takes(t))
         return sum(walk(v) for v in t.values()) if isinstance(t, dict) else 0
     return walk(params["layers"][0])
 
 
-def drive_w8a8(label: str, ckpt: Path, steps: int, device: str = "cuda") -> dict:
-    """The W8A8 checkpoint as ``serve`` lays it out (int8 head): an 8 x 128
-    prefill, a 1 x 128 row prefill and ``steps`` greedy decode steps, each
-    with exact launch counts: K10 on every W8A8 linear (q|k|v and gate|up
-    fused: 4 a layer) at every row count, K3 for the head up to
-    KERNEL_MAX_ROWS rows, K2 a layer at decode."""
+def drive_served(label: str, ckpt: Path, steps: int, matmul: str = "w8a8_matmul",
+                 device: str = "cuda") -> dict:
+    """A W8A8 or FP8_BLOCK checkpoint as ``serve`` lays it out (int8 head):
+    an 8 x 128 prefill, a 1 x 128 row prefill and ``steps`` greedy decode
+    steps, each with exact launch counts: ``matmul`` on every linear of its
+    kind (q|k|v and gate|up fused: 4 a layer), K10 at every row count and
+    K9 up to KERNEL_MAX_ROWS rows, K3 for the head up to KERNEL_MAX_ROWS
+    rows, K2 a layer at decode."""
     from quantizers_tpu_torch.models import KVCache
     from quantizers_tpu_torch.models.loader import load_compressed_model
     from quantizers_tpu_torch.ops import kernels as K
+    from quantizers_tpu_torch.ops.dispatch import KERNEL_MAX_ROWS
     from quantizers_tpu_torch.serve import prefill, serving_layout
     from quantizers_tpu_torch.serve.engine import _decode_scan
 
     spec, params = load_compressed_model(ckpt, device=device)
     params = serving_layout(spec, params, head_bits=8, device=device)
-    L, per = spec.num_layers, w8a8_per_layer(params)
-    check(per == 4, f"{label}: {per} W8A8 linears a served layer, want 4 (q|k|v, o, gate|up, down)")
+    L, per = spec.num_layers, served_linears(params, matmul)
+    check(per == 4, f"{label}: {per} linears a served layer on {matmul}, want 4 "
+          "(q|k|v, o, gate|up, down)")
     ids = ((torch.arange(BATCH * PREFILL, device=device).reshape(BATCH, PREFILL) * 89 + 3)
            % spec.vocab_size)
-    res = {"layers": L, "w8a8_linears_per_layer": per}
+    res = {"layers": L, "linears_per_layer": per, "matmul": matmul}
     for name, rows in (("row_prefill", 1), ("prefill", BATCH)):
         caches = KVCache.init(spec, rows, MAX_LEN, device=device)
         K.reset_launch_counts()
@@ -3191,7 +3224,9 @@ def drive_w8a8(label: str, ckpt: Path, steps: int, device: str = "cuda") -> dict
         last, caches = prefill(params, spec, ids[:rows], caches)
         torch.cuda.synchronize()
         res[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3
-        want = expect(w8a8_matmul=per * L, w8_matmul=int(rows * PREFILL <= 512))
+        kernel_rows = matmul == "w8a8_matmul" or rows * PREFILL <= KERNEL_MAX_ROWS
+        want = expect(**{matmul: per * L * kernel_rows,
+                         "w8_matmul": int(rows * PREFILL <= KERNEL_MAX_ROWS)})
         got = K.launch_counts()
         check(got == want, f"{label}: {name} launches {got} != {want}")
         res[f"{name}_launches"] = {k: v for k, v in got.items() if v}
@@ -3203,7 +3238,8 @@ def drive_w8a8(label: str, ckpt: Path, steps: int, device: str = "cuda") -> dict
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / steps
     got = K.launch_counts()
-    want = expect(w8a8_matmul=per * L * steps, decode_attention=L * steps, w8_matmul=steps)
+    want = expect(**{matmul: per * L * steps, "decode_attention": L * steps,
+                     "w8_matmul": steps})
     check(got == want, f"{label}: decode launches {got} != {want}")
     check(bool(((toks >= 0) & (toks < spec.vocab_size)).all()), f"{label}: ids out of range")
     res.update(steps=steps, ms_per_step=dt * 1e3,
@@ -3244,7 +3280,7 @@ def oneshot_w8a8_phase(detail, tmp: Path, bf16: Path) -> dict:
     with k10:
         served = serve_output("path I", out, synthetic_text(),
                               (("decode_attention",), ("w8_matmul",), ("w8a8_matmul",)), card)
-        drive = drive_w8a8("path I", out, SIDE_STEPS)
+        drive = drive_served("path I", out, SIDE_STEPS)
     log(f"[path I drive] ({card}) {drive}")
     shutil.rmtree(out)
     gen = torch.Generator(device="cuda").manual_seed(F_SEED)
@@ -4058,10 +4094,303 @@ def card_vs_cpu_gptq(detail, tmp: Path, dense: Path, moe: Path,
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# slice 7f: AutoRound (path K) and data-free PTQ (path L)
+
+#: the reference's GLM-4.7-Flash-FP8 ignore policy
+#: (configs/quantize_glm-4.7-flash-fp8.yaml:4-6); its MLA patterns match
+#: nothing in Qwen3
+GLM_FP8_IGNORE = ["lm_head", "re:.*mlp\\.gate$", "re:.*kv_a_proj_with_mqa$",
+                  "re:.*kv_a_layernorm$", "re:.*q_a_layernorm$", "re:.*embed_tokens$"]
+#: path K's scheme (recipe_ar_w4a16g32.yaml): symmetric w4 g32
+AR_W4G32 = {"num_bits": 4, "type": "int", "symmetric": True, "strategy": "group",
+            "group_size": 32}
+#: phase 26(a): layer 0's gate_proj of path F's model cut to its first
+#: AR_SITE_ROWS output channels (N 256, K 2560), on the rows the CPU's
+#: capture keeps (1,024), AR_ITERS steps at the recipe's step size AR_LR (a
+#: second run at 0.005 gave the same picture on an H100, `PERF.md` §6, and
+#: was cut for time)
+AR_SITE_ROWS, AR_ITERS, AR_LR = 256, 200, 0.05
+#: phase 26(a), card against CPU. signSGD steps by the sign of each
+#: gradient entry, and an entry near zero may take the other sign when the
+#: f32 sums run in another order; the two trajectories part from there. The
+#: witness: each device re-solves its own problem AR_WITNESS_DRAWS times
+#: with every entry of X moved by one f32 ulp (or left) (on an H100 the
+#: card's own draws moved 2.6-3.1x fewer codes than the devices did, and
+#: reordering the rows of X moved none). The card's best loss on the CPU's
+#: problem lies within the larger of AR_LOSS_RTOL and AR_WITNESS_FACTOR
+#: times the witness's largest spread of its device's loss; its codes apart
+#: from the CPU's in at most AR_WITNESS_FACTOR times the witness's largest
+#: share
+AR_LOSS_RTOL, AR_WITNESS_DRAWS, AR_WITNESS_FACTOR = 1e-3, 3, 2.0
+
+
+def oneshot_autoround_phase(detail, tmp: Path, bf16: Path) -> None:
+    """Path K: the first HI_LAYERS layers of path F's Qwen3-4B bf16
+    checkpoint (``bf16``) through ``do_oneshot`` with recipe_ar_w4a16g32
+    (AutoRound, 200 steps, the MLP's three linears, W4A16 g32) on the card:
+    the stage seconds, the peak memory, 3 records a layer, the exact K4
+    (capture and propagate) and K1 (the propagate's MLP) launches; then
+    served (K1 for the MLP, K2, the int8 head on K3)."""
+    from quantizers_tpu_torch.models import ModelSpec
+
+    t0 = time.perf_counter()
+    card = detail["device"]
+    spec = ModelSpec(**dict(GEOMETRY, num_layers=HI_LAYERS))
+    out = tmp / "qwen3_4b_ar_w4a16g32"
+    with BatchShapes() as shapes:
+        run = oneshot_cli("path K", write_run_config(tmp / "run_K.yaml", bf16,
+                                                     "recipe_ar_w4a16g32"),
+                          out, tmp / "calibration_cache", card)
+    want = calibration_launches(spec, shapes.shapes, 2, "w4_matmul", every_m=False, linears=3)
+    check(run["records"] == spec.num_layers * 3,
+          f"path K: {run['records']} records, want {spec.num_layers * 3}")
+    check(run["launches"] == want and want["w4_matmul"] > 0,
+          f"path K: calibration launches {run['launches']} != {want}")
+    group = json.loads((out / "config.json").read_text())["quantization_config"][
+        "config_groups"]["group_0"]
+    w = group["weights"]
+    check((w["num_bits"], w["type"], w["strategy"], w["group_size"]) == (4, "int", "group", 32)
+          and group["targets"] == ["re:.*mlp\\.(gate|up|down)_proj$"],
+          f"path K: the checkpoint's scheme is {group}")
+    torch.cuda.empty_cache()
+    served = serve_output("path K", out, synthetic_text(),
+                          (("decode_attention",), ("w8_matmul",), ("w4_matmul",)), card)
+    detail["path_K"] = {"device": card, "batches": shapes.shapes, "oneshot": run,
+                        "serve": served, "seconds": time.perf_counter() - t0}
+    shutil.rmtree(out)
+
+
+def model_free_cli(label: str, src: Path, out: Path, scheme: str, device: str,
+                   ignore=None) -> dict:
+    """``cli/model_free.main`` as a user runs it (on the card unless
+    ``device`` names the CPU): its seconds, tensors quantized, bytes written,
+    the peak device memory and the kernels it launched (none)."""
+    from quantizers_tpu_torch.cli import model_free
+    from quantizers_tpu_torch.ops import kernels as K
+
+    argv = [str(src), str(out), "--scheme", scheme, "--device", device]
+    if ignore is not None:
+        argv += ["--ignore", *ignore]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc, stdout, _ = run_cli(model_free.main, argv, "quantizers_tpu_torch.oneshot.model_free")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check(rc == 0, f"{label}: model_free returned {rc}")
+    counts = K.launch_counts()
+    check(counts == expect(), f"{label}: model_free launched {counts}")
+    return {"device": device, "scheme": scheme, "seconds": seconds,
+            "quantized": int(re.search(r"quantized (\d+) tensors", stdout).group(1)),
+            "output_bytes": sum(f.stat().st_size for f in out.iterdir()),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def model_free_phase(detail, tmp: Path, bf16: Path) -> None:
+    """Path L: path F's full-depth Qwen3-4B bf16 checkpoint through the
+    port's ``cli/model_free.main`` with FP8_BLOCK and the reference's
+    GLM-4.7-Flash-FP8 ignore policy on the card: its seconds, bytes written,
+    peak device memory, 252 quantized tensors and the scheme in
+    ``config.json``; then ``cli/serve.main`` (fp8 linears on K9, K2, the
+    int8 head on K3) and a drive with exact launches (``drive_served``)."""
+    from quantizers_tpu_torch.formats.checkpoint import CompressedModelReader
+    from quantizers_tpu_torch.models import ModelSpec
+
+    t0 = time.perf_counter()
+    card = detail["device"]
+    spec = ModelSpec(**GEOMETRY)
+    out = tmp / "qwen3_4b_fp8_block"
+    run = model_free_cli("path L", bf16, out, "FP8_BLOCK", "cuda", GLM_FP8_IGNORE)
+    log(f"[path L] model_free ({card}): {run}")
+    check(run["quantized"] == spec.num_layers * 7,
+          f"path L: {run['quantized']} tensors quantized, want {spec.num_layers * 7}")
+    qcfg = json.loads((out / "config.json").read_text())["quantization_config"]
+    w = qcfg["config_groups"]["group_0"]["weights"]
+    check((w["num_bits"], w["type"], w["strategy"], w["block_structure"]) ==
+          (8, "float", "block", [128, 128]) and qcfg["ignore"] == GLM_FP8_IGNORE,
+          f"path L: the checkpoint's scheme is {w}, ignore {qcfg['ignore']}")
+    with CompressedModelReader(out) as r:
+        quant = r.quantized_modules()
+    check(len(quant) == spec.num_layers * 7, f"path L: {len(quant)} quantized modules on disk")
+    torch.cuda.empty_cache()
+    served = serve_output("path L", out, synthetic_text(),
+                          (("decode_attention",), ("w8_matmul",), ("fp8_matmul",)), card)
+    drive = drive_served("path L", out, SIDE_STEPS, "fp8_matmul")
+    log(f"[path L drive] ({card}) {drive}")
+    detail["path_L"] = {"device": card, "model_free": run, "serve": served, "drive": drive,
+                        "seconds": time.perf_counter() - t0}
+    shutil.rmtree(out)
+
+
+def autoround_site(tmp: Path, dense: Path) -> tuple:
+    """Phase 26(a)'s problem: layer 0's gate_proj of ``dense`` and the rows
+    the CPU's capture keeps for it (MAX_ROWS, 1,024) over the fixture set's
+    11 rows at 256 tokens (``oneshot`` on the CPU with AutoRound on that
+    site alone, 0 steps), the weight cut to its first AR_SITE_ROWS output
+    channels, f32 on the CPU."""
+    from quantizers_tpu_torch.models import load_hf_model
+    from quantizers_tpu_torch.oneshot import autoround as TA
+    from quantizers_tpu_torch.oneshot import make_batches, oneshot
+    from quantizers_tpu_torch.recipes import parse_recipe
+
+    batches = make_batches(fixture_rows(tmp), max_seq_length=256, batch_size=4)
+    spec, params = load_hf_model(dense, device="cpu")
+    recipe = {"quant_stage": {"quant_modifiers": {"AutoRoundModifier": {
+        "iters": 0, "config_groups": {"group_0": {
+            "targets": ["re:.*layers\\.0\\.mlp\\.gate_proj$"], "weights": AR_W4G32}}}}}}
+    seen, orig = [], TA.autoround_quantize
+
+    def recording(w, x, *a, **kw):
+        seen.append((w[:AR_SITE_ROWS].contiguous(), x))
+        return orig(w, x, *a, **kw)
+    TA.autoround_quantize = recording
+    try:
+        oneshot(spec, params, parse_recipe(recipe), batches, device="cpu")
+    finally:
+        TA.autoround_quantize = orig
+    check(len(seen) == 1 and seen[0][1].shape[0] == TA.MAX_ROWS,
+          f"phase 26: {len(seen)} AutoRound sites, want 1 on {TA.MAX_ROWS} rows")
+    return seen[0]
+
+
+def autoround_on_both(W: torch.Tensor, X: torch.Tensor, lr: float, gen,
+                      devices=("cuda", "cpu")) -> dict:
+    """One AutoRound problem (W, X on the CPU, RTN scales from W) solved on
+    both devices and, on each, AR_WITNESS_DRAWS times with X one f32 ulp
+    apart: each solve's best loss, its step-0 loss and seconds, the
+    witness's spreads and shares, the codes apart; checked against the
+    limits."""
+    from quantizers_tpu_torch.core.scheme import QuantizationArgs
+    from quantizers_tpu_torch.oneshot import autoround as TA
+
+    args = QuantizationArgs.from_dict(AR_W4G32)
+    scale, zp, g = TA._qparams(W, args)
+
+    def solve(x, dev):
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q, best, first = TA._autoround_solve(
+            W.to(dev), x.to(dev), scale.to(dev), None if zp is None else zp.to(dev),
+            iters=AR_ITERS, group_size=g, qmin=-8.0, qmax=7.0, lr=lr)
+        best, first = float(best), float(first)  # waits for the device
+        return {"q": q.cpu(), "best": best, "first": first,
+                "seconds": time.perf_counter() - t0}
+
+    got, ref = solve(X, devices[0]), solve(X, devices[1])
+    label = f"card vs CPU AutoRound lr {lr}"
+    for d, r in zip(devices, (got, ref)):
+        check(r["best"] <= r["first"], f"{label}: the {d}'s best loss {r['best']} is above its "
+              f"step-0 loss {r['first']}")
+    spreads, shares = {d: [] for d in devices}, {d: [] for d in devices}
+    for d, own in zip(devices, (got, ref)):
+        Xd = X.to(d)
+        for _ in range(AR_WITNESS_DRAWS):
+            r = torch.randint(-1, 2, X.shape, generator=gen).float().to(d)
+            w = solve(Xd * (1.0 + r * 2.0 ** -23), d)
+            spreads[d].append(abs(w["best"] - own["best"]) / own["best"])
+            shares[d].append(float((w["q"] != own["q"]).float().mean()))
+    spread = max(max(v) for v in spreads.values())
+    share = max(max(v) for v in shares.values())
+    rel = abs(got["best"] - ref["best"]) / ref["best"]
+    apart = got["q"] != ref["q"]
+    res = {"lr": lr, "rows": X.shape[0], "n_k": list(W.shape), "iters": AR_ITERS,
+           "best": {d: r["best"] for d, r in zip(devices, (got, ref))},
+           "rtn": {d: r["first"] for d, r in zip(devices, (got, ref))},
+           "seconds": {d: r["seconds"] for d, r in zip(devices, (got, ref))},
+           "best_rel_apart": rel, "witness_spreads": spreads,
+           "loss_limit": max(AR_LOSS_RTOL, AR_WITNESS_FACTOR * spread),
+           "codes_apart_share": float(apart.float().mean()),
+           "codes_apart_max_steps": int((got["q"] - ref["q"]).abs().max()),
+           "witness_shares": shares, "codes_limit": AR_WITNESS_FACTOR * share}
+    check(rel <= res["loss_limit"], f"{label}: best losses {rel:.3g} apart, limit "
+          f"{res['loss_limit']:.3g}: {res}")
+    check(res["codes_apart_share"] <= res["codes_limit"],
+          f"{label}: {res['codes_apart_share']:.3g} of the codes apart, limit "
+          f"{res['codes_limit']:.3g}: {res}")
+    log(f"[{label}] {res}")
+    return res
+
+
+def same_checkpoint(label: str, got: Path, ref: Path) -> dict:
+    """Two checkpoint directories: the same files, every tensor equal bit
+    for bit, every other file equal byte for byte."""
+    from quantizers_tpu_torch.formats.safetensors_io import ShardedReader
+
+    files = sorted(f.name for f in ref.iterdir())
+    check(sorted(f.name for f in got.iterdir()) == files, f"{label}: other files")
+    with ShardedReader(got) as a, ShardedReader(ref) as b:
+        check(a.weight_map == b.weight_map, f"{label}: other indexes")
+        for name in b.keys():
+            x, y = a.get(name), b.get(name)
+            check(x.dtype == y.dtype and x.shape == y.shape and
+                  torch.equal(x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8)),
+                  f"{label}: {name} differs")
+        tensors = len(b.keys())
+    for f in files:
+        if not f.endswith(".safetensors"):
+            check((got / f).read_bytes() == (ref / f).read_bytes(), f"{label}: {f} differs")
+    return {"tensors": tensors, "files": len(files)}
+
+
+def card_vs_cpu_slice7f(detail, tmp: Path, dense: Path, devices=("cuda", "cpu")) -> None:
+    """Phase 26: (a) AutoRound on one cut site of path F's model
+    (``autoround_site``), on both devices and the witness
+    (``autoround_on_both``); (b) ``model_free`` on the first 2 layers
+    of path F's model with FP8_BLOCK and W4A16_G32 on both devices: every
+    tensor equal bit for bit, the same index, ``config.json`` and assets."""
+    row = {"device": detail["device"]}
+    detail["card_vs_cpu_7f"] = row
+    t0 = time.perf_counter()
+    W, X = autoround_site(tmp, dense)
+    row["capture_s"] = time.perf_counter() - t0
+    gen = torch.Generator().manual_seed(F_SEED)
+    row["autoround"] = autoround_on_both(W, X, AR_LR, gen, devices)
+    del W, X
+    row["model_free"] = {}
+    for scheme in ("FP8_BLOCK", "W4A16_G32"):
+        outs = [tmp / f"model_free_{scheme}_{i}" for i in range(len(devices))]
+        runs = [model_free_cli(f"card vs CPU model_free {scheme}", dense, out, scheme, d)
+                for out, d in zip(outs, devices)]
+        same = same_checkpoint(f"card vs CPU model_free {scheme}", *outs)
+        row["model_free"][scheme] = {"runs": runs, **same}
+        log(f"[card vs CPU model_free {scheme}] {row['model_free'][scheme]}")
+        for out in outs:
+            shutil.rmtree(out)
+    row["seconds"] = time.perf_counter() - t0
+
+
+def autoround_expert_stack(gen, experts: int = 128, n: int = 768, k: int = 2048,
+                           rows: int = 1024) -> dict:
+    """One expert stack's AutoRound at path G's width (Qwen3-30B-A3B's 128
+    experts' gate_proj, 768 x 2048, each on 1,024 rows, AR_ITERS steps): the
+    seconds on the card, and the estimate for a layer's three stacks. Not in
+    the default run (ROADMAP queue 1)."""
+    from quantizers_tpu_torch.core.scheme import QuantizationArgs
+    from quantizers_tpu_torch.oneshot import autoround_quantize
+
+    args = QuantizationArgs.from_dict(AR_W4G32)
+    W = torch.randn((experts, n, k), generator=gen, device="cuda") * 0.02
+    X = torch.randn((rows, k), generator=gen, device="cuda")
+    autoround_quantize(W[0], X, args, AR_ITERS)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for e in range(experts):
+        autoround_quantize(W[e], X, args, AR_ITERS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return {"experts": experts, "n_k": [n, k], "rows": rows, "iters": AR_ITERS,
+            "seconds": seconds, "per_solve_ms": seconds / experts * 1e3,
+            "layer_estimate_s": 3 * seconds}
+
+
 def oneshot_phases(detail) -> dict:
-    """Phases 16-23: paths F and G (slice 6 and the RTN oneshot engine), H,
-    I and J (AWQ, W8A8 and GPTQ on F's bf16 checkpoint), from bf16
-    checkpoints to served compressed ones, and the engine card against CPU;
+    """Phases 16-26: paths F and G (slice 6 and the RTN oneshot engine), H,
+    I, J, K and L (AWQ, W8A8, GPTQ, AutoRound and data-free FP8_BLOCK on F's
+    bf16 checkpoint), from bf16 checkpoints to served compressed ones, and
+    the engine card against CPU;
     ``detail["device"]`` holds the card's nvidia-smi line. The checkpoints,
     the calibration cache and HF's caches live in a temporary directory,
     removed at the end; nothing is fetched. Returns path I's drive."""
@@ -4072,12 +4401,15 @@ def oneshot_phases(detail) -> dict:
         bf16, two = oneshot_dense_phase(detail, Path(tmp))
         oneshot_awq_phase(detail, Path(tmp), two)
         drive = oneshot_w8a8_phase(detail, Path(tmp), two)
+        oneshot_autoround_phase(detail, Path(tmp), two)
         oneshot_gptq_phase(detail, Path(tmp), bf16)
+        model_free_phase(detail, Path(tmp), bf16)
         shutil.rmtree(bf16)
         one = oneshot_moe_phase(detail, Path(tmp))
         card_vs_cpu_oneshot(detail, Path(tmp), two, one)
         card_vs_cpu_slice7(detail, Path(tmp), two, one)
         card_vs_cpu_gptq(detail, Path(tmp), two, one)
+        card_vs_cpu_slice7f(detail, Path(tmp), two)
     return drive
 
 
@@ -4196,7 +4528,7 @@ def main() -> int:
     card_vs_cpu_mla(detail, synthetic_text())
     lap("path_E")
 
-    # phases 16-23: paths F, H, I, J and G, and the engine card against CPU
+    # phases 16-26: paths F, H, I, K, J, L and G, and the engine card against CPU
     drive_i = oneshot_phases(detail)
     lap("oneshot")
 

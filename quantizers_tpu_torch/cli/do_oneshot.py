@@ -16,8 +16,9 @@ Usage::
 It runs on the CUDA card unless ``--device`` names another device. The
 model is a local HF checkpoint directory; the calibration datasets are
 read through HF ``datasets`` (local directories, such as the repository's
-``tests/fixtures``, need no network). The port runs ``QuantizationModifier``
-(RTN) recipes; the other modifiers raise (ROADMAP queue 1, slices 7d-7f).
+``tests/fixtures``, need no network). Every modifier of the JAX package
+runs: ``QuantizationModifier`` (RTN), ``GPTQModifier``, ``AWQModifier``,
+``SmoothQuantModifier`` and ``AutoRoundModifier``.
 """
 
 from __future__ import annotations

@@ -58,6 +58,7 @@ from ..formats.checkpoint import CompressedParam
 from ..models.config import ModelSpec
 from ..models.transformer import apply_layer, embed, tree_to
 from ..recipes import ModifierSpec, Recipe
+from .autoround import AutoRoundModifier
 from .awq import AWQModifier
 from .gptq import GPTQModifier
 from .modifiers import LayerCtx, Modifier, RTNModifier, SiteResult, _to_host
@@ -66,22 +67,14 @@ from .smoothquant import SmoothQuantModifier
 
 logger = logging.getLogger(__name__)
 
-#: the modifiers whose algorithms are not ported yet, and the ROADMAP part
-#: (queue 1, slice 7) that brings each
-_LATER = {"AutoRoundModifier": "7f"}
-
 
 def _build_modifier(spec: ModifierSpec) -> Modifier:
     table = {"QuantizationModifier": RTNModifier, "GPTQModifier": GPTQModifier,
-             "AWQModifier": AWQModifier, "SmoothQuantModifier": SmoothQuantModifier}
-    if spec.name in _LATER:
-        raise NotImplementedError(
-            f"{spec.name} is not ported yet: ROADMAP queue 1, slice {_LATER[spec.name]}; "
-            f"the port runs {', '.join(sorted(table))} recipes")
+             "AWQModifier": AWQModifier, "SmoothQuantModifier": SmoothQuantModifier,
+             "AutoRoundModifier": AutoRoundModifier}
     cls = table.get(spec.name)
     if cls is None:
-        raise ValueError(f"Unsupported modifier {spec.name!r}; "
-                         f"known: {sorted([*table, *_LATER])}")
+        raise ValueError(f"Unsupported modifier {spec.name!r}; known: {sorted(table)}")
     return cls(spec)
 
 

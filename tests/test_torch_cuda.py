@@ -1344,3 +1344,53 @@ def test_gptq_failed_device_factor_falls_back_and_caches_nothing(gen, monkeypatc
     got, _ = TG.gptq_quantize(w, H, args, ufactor_cache=cache, cache_key=("site", None))
     assert TG.host_factor_fallbacks == before + 1 and cache == {}
     assert got.values.is_cuda and torch.equal(got.values, want.values)
+
+
+@pytest.mark.parametrize("sym", [True, False])
+def test_w4_packing_of_card_codes_equals_the_cpu(gen, sym):
+    """w4 g32 codes quantized on the card (symmetric and asymmetric), packed
+    by ``compress_tensor`` on the card: the codes, scales and zero points
+    equal the CPU's quantize of the same weights, and the packed bytes equal
+    the CPU's packing of them (the asymmetric zero points included, packed
+    as the JAX package packs them)."""
+    from quantizers_tpu_torch.core.numerics import quantize
+    from quantizers_tpu_torch.core.scheme import QuantizationArgs
+    from quantizers_tpu_torch.formats.compressed_tensors import compress_tensor
+
+    args = QuantizationArgs.from_dict({"num_bits": 4, "type": "int", "symmetric": sym,
+                                       "strategy": "group", "group_size": 32})
+    w = torch.randn((1024, 2560), generator=gen, device="cuda") * 0.02
+    card, cpu = quantize(w, args), quantize(w.cpu(), args)
+    for got, want in zip(card[:3], cpu[:3]):
+        assert (got is None) == (want is None)
+        if want is not None:
+            assert got.is_cuda and torch.equal(got.cpu(), want)
+    packed, ref = compress_tensor("m", card, args), compress_tensor("m", cpu, args)
+    assert sorted(packed) == sorted(ref) and ("m.weight_zero_point" in ref) == (not sym)
+    for key, t in ref.items():
+        assert packed[key].is_cuda and packed[key].dtype == t.dtype, key
+        assert torch.equal(packed[key].cpu().reshape(-1).view(torch.uint8),
+                           t.reshape(-1).view(torch.uint8)), key
+
+
+@pytest.mark.parametrize("lr", [0.05, 0.005])
+def test_autoround_on_the_card_never_loses_to_its_step_0(gen, lr):
+    """AutoRound on the card at path K's width (one cut site, N 256, K 2560,
+    1,024 rows): the best loss is at most the loss at V = 0 (step 0, RTN),
+    and at the smaller step (0.005) the solve improves on it; the codes lie
+    on the grid and come back as int8 on the card."""
+    from quantizers_tpu_torch.core.scheme import QuantizationArgs
+    from quantizers_tpu_torch.oneshot import autoround as TA
+
+    args = QuantizationArgs.from_dict({"num_bits": 4, "type": "int", "symmetric": True,
+                                       "strategy": "group", "group_size": 32})
+    W = torch.randn((256, 2560), generator=gen, device="cuda") * 0.02
+    X = torch.randn((1024, 2560), generator=gen, device="cuda")
+    scale, zp, g = TA._qparams(W, args)
+    q, best, first = TA._autoround_solve(W, X, scale, zp, iters=200, group_size=g, qmin=-8.0,
+                                         qmax=7.0, lr=lr)
+    assert best.is_cuda and float(best) <= float(first)
+    assert float(best) < float(first) or lr == 0.05
+    assert torch.equal(q, torch.round(q)) and -8 <= q.min().item() and q.max().item() <= 7
+    qt = TA.autoround_quantize(W, X, args, iters=20, lr=lr)
+    assert qt.values.is_cuda and qt.values.dtype == torch.int8

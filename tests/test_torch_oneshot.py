@@ -215,25 +215,20 @@ def test_bad_offload_refuses(models):
                 [], offload="disk", device="cpu")
 
 
-@pytest.mark.parametrize("name,slice_", [("AutoRoundModifier", "7f")])
-def test_unported_modifiers_name_their_slice(name, slice_, models):
-    _, jparams, spec = models["dense"]
-    recipe = parse_recipe({"quant_stage": {"quant_modifiers": {
-        name: {"config_groups": {"group_0": W4G32}}}}})
-    with pytest.raises(NotImplementedError, match=f"slice {slice_}"):
-        oneshot(spec, params_from_numpy(jparams, device="cpu"), recipe, [], device="cpu")
-
-
-@pytest.mark.parametrize("name", ["AWQModifier", "SmoothQuantModifier", "GPTQModifier"])
+@pytest.mark.parametrize("name", ["AWQModifier", "SmoothQuantModifier", "GPTQModifier",
+                                  "AutoRoundModifier"])
 def test_ported_modifiers_run(name, models):
-    """AWQ and SmoothQuant (slice 7e) and GPTQ (slice 7d) run where they
-    used to be refused: AWQ and GPTQ compress every linear, SmoothQuant only
-    transforms (its paired RTN compresses), and with no calibration batch
-    AWQ and SmoothQuant leave the folds out and GPTQ falls back to RTN, as in
-    the JAX package (tests/test_torch_awq.py and test_torch_gptq.py hold
-    them against it)."""
+    """AWQ and SmoothQuant (slice 7e), GPTQ (slice 7d) and AutoRound (slice
+    7f) run where they used to be refused: AWQ, GPTQ and AutoRound compress
+    every linear, SmoothQuant only transforms (its paired RTN compresses),
+    and with no calibration batch AWQ and SmoothQuant leave the folds out,
+    GPTQ falls back to RTN and AutoRound solves on unit rows, as in the JAX
+    package (tests/test_torch_awq.py, test_torch_gptq.py and
+    test_torch_autoround.py hold them against it)."""
     jspec, jparams, spec = models["dense"]
     mods = {name: {"config_groups": {"group_0": W4G32}}}
+    if name == "AutoRoundModifier":
+        mods[name]["iters"] = 4
     if name == "SmoothQuantModifier":
         mods = {name: {}, "QuantizationModifier": {"config_groups": {"group_0": W4G32}}}
     recipe = {"quant_stage": {"quant_modifiers": mods}}
@@ -245,7 +240,7 @@ def test_ported_modifiers_run(name, models):
         assert sorted(res.records) == sorted(jres.records)
         assert len(res.records) == spec.num_layers * 7
     # no batch: no statistic, so no fold (no Hessian): RTN's codes of the
-    # bf16 weights
+    # bf16 weights (AutoRound's on unit rows)
     for key, cp in jres.records.items():
         np.testing.assert_array_equal(res.records[key].qt.values.numpy(),
                                       np.asarray(cp.qt.values), err_msg=key)
