@@ -3487,6 +3487,10 @@ GPTQ_BLOCK = 128
 GPTQ_SHAPES = {name: (n, k) for name, (k, n) in QWEN3_PROJ.items()}
 #: K11 launches a Qwen3-4B layer: ceil(K / 128) for each of its projections
 GPTQ_BLOCKS_PER_LAYER = sum(-(-k // GPTQ_BLOCK) for k, _ in QWEN3_PROJ.values())
+#: K11's row counts timed in phase 3: path J's (Qwen3-4B's projections)
+#: and Qwen3-30B-A3B's behind phase 23's 4,944 launches a layer: k and v
+#: (512), an expert's gate and up (768), o_proj and an expert's down (2048)
+GPTQ_TIMED_N = sorted({n for n, _ in GPTQ_SHAPES.values()} | {512, 768, 2048})
 #: (N, K, symmetric, group, actorder) beyond path J's symmetric g32: the
 #: repository recipe's asymmetric g128 with actorder group, actorder weight,
 #: asymmetric g32, K not a multiple of 128 (padded), a block under 128, a
@@ -3606,8 +3610,9 @@ def gptq_block_bound(n: int, bs: int, g: int) -> dict:
 def time_gptq_block(gen, n: int, g: int = 32) -> dict:
     """One K11 launch at N rows and a 128-column block (path J's symmetric
     g32), its Q and Err bit for bit against the plain version's, then its
-    time and device time, the plain version's and the bound. The weights
-    rotate through copies, as a solve meets each block once."""
+    time and device time as a solve launches it (``gptq_block_launcher`` on
+    operands converted once), the plain version's and the bound. The
+    weights rotate through copies, as a solve meets each block once."""
     from quantizers_tpu_torch.oneshot import gptq as TG
     from quantizers_tpu_torch.ops import kernels as K
 
@@ -3626,11 +3631,12 @@ def time_gptq_block(gen, n: int, g: int = 32) -> dict:
           f"{label}: Q or Err differ from the plain version")
     copies = [w] + [w.clone() for _ in range(copies_for(12 * n * GPTQ_BLOCK) - 1)]
     wsrc = rotating(copies)
+    launch, ops = K.gptq_block_launcher(w.device), K.gptq_operands(w.device, scale, None, cg)
     row = {"n": n, "bs": GPTQ_BLOCK, "group": g,
            "max_abs_err": max((q - q_ref).abs().max().item(), (err - err_ref).abs().max().item()),
            "tol": 0.0,
-           "ms": cuda_ms(lambda: K.gptq_block(wsrc(), u, scale, None, cg, qmin, qmax)),
-           "dev_ms": device_ms(lambda: K.gptq_block(wsrc(), u, scale, None, cg, qmin, qmax)),
+           "ms": cuda_ms(lambda: launch(wsrc(), u, *ops, qmin, qmax)),
+           "dev_ms": device_ms(lambda: launch(wsrc(), u, *ops, qmin, qmax)),
            "plain_ms": cuda_ms(lambda: K.gptq_block_plain(w, u, scale, None, cg, qmin, qmax),
                                iters=3, warmup=1),
            "library_ms": None, **gptq_block_bound(n, GPTQ_BLOCK, g)}
@@ -3641,7 +3647,7 @@ def time_gptq_block(gen, n: int, g: int = 32) -> dict:
 def gptq_kernels(gen, detail) -> dict:
     """Phase 3, K11: a whole solve bit for bit against the plain version at
     each of path J's shapes (symmetric g32) and the GPTQ_OTHER cases; one
-    launch timed at each of path J's row counts; the wrapper on a W block
+    launch timed at each row count of GPTQ_TIMED_N; the wrapper on a W block
     at an unaligned base (it copies it) and the C entry's refusal of it."""
     from quantizers_tpu_torch.ops import _build
     from quantizers_tpu_torch.ops import kernels as K
@@ -3650,7 +3656,7 @@ def gptq_kernels(gen, detail) -> dict:
     for n, k, sym, g, actorder in GPTQ_OTHER:
         rows[f"{n}x{k} {'sym' if sym else 'asym'} g{g} {actorder}"] = check_gptq(
             gen, n, k, sym, g, actorder)
-    for n in sorted({n for n, _ in GPTQ_SHAPES.values()}):
+    for n in GPTQ_TIMED_N:
         rows[f"block@n{n}"] = time_gptq_block(gen, n)
     w = torch.randn((64, GPTQ_BLOCK), device=gen.device, generator=gen)
     u = torch.eye(GPTQ_BLOCK, device=gen.device) + torch.triu(
@@ -3700,14 +3706,13 @@ class K11LayerTrace:
         from torch.profiler import ProfilerActivity, profile
 
         from quantizers_tpu_torch.oneshot import gptq as TG
-        from quantizers_tpu_torch.ops import kernels as K
 
         self.TG, self.orig, self.calls, self.solves, self.events = TG, TG._gptq_solve, 0, [], []
 
         def timed(*b):
             s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             s.record()
-            out = K.gptq_block(*b)
+            out = self.block(*b)
             e.record()
             self.events.append((s, e))
             return out
@@ -3724,7 +3729,9 @@ class K11LayerTrace:
             if i == self.first:
                 torch.cuda.synchronize()
                 self.t0 = time.perf_counter()
-            q = TG._eliminate(timed, *a, kw["block_size"], kw["qmin"], kw["qmax"], kw["sym"])
+            self.block, *ops = TG._block_route(*a, kw["block_size"], kw["sym"])
+            q = TG._eliminate(timed, *a[:2], *ops, kw["block_size"], kw["qmin"], kw["qmax"],
+                              kw["sym"])
             self.solves.append((a, kw, q))
             if i == self.last:
                 torch.cuda.synchronize()

@@ -16,9 +16,10 @@ recipe_gptq_w4a16_g128.yaml``). Design, as in the JAX package:
   a layer (``ufactor_cache``).
 * Group scales are solved up front from the weights (static groups), so
   the elimination is pure snap-and-propagate: blocks of 128 columns, each
-  block's serial column loop in K11 (``csrc/gptq_block.cu`` through
-  ``ops/kernels.py:gptq_block``; its plain version on the CPU), the error
-  carried to the later blocks by one f32 matrix product a block.
+  block's serial column loop in K11 (``csrc/gptq_block.cu``, launched on
+  operands converted once a solve: :func:`_block_route`; on the CPU
+  ``ops/kernels.py:gptq_block``'s plain version), the error carried to the
+  later blocks by one f32 matrix product a block.
 * ``actorder`` (group or weight) processes the columns by descending
   Hessian diagonal; ``group`` returns ``g_idx`` (``weight_g_idx`` on disk).
 
@@ -102,6 +103,26 @@ def _eliminate(block: Callable, W: torch.Tensor, Hinv_u: torch.Tensor, scale: to
     return Q
 
 
+def _block_route(W: torch.Tensor, Hinv_u: torch.Tensor, scale: torch.Tensor,
+                 zp: Optional[torch.Tensor], col_group: torch.Tensor, block_size: int,
+                 sym: bool):
+    """The block function of a solve on W's device and the operands it
+    reads. On the card: K11's launch with the scales, zero points and
+    column groups converted once a solve (``ops/kernels.py:gptq_operands``)
+    and the SM count and stream read once, so that a block's launch
+    converts and checks nothing of them. Elsewhere ``gptq_block`` as it is
+    (on the CPU its plain version)."""
+    if W.device.type != "cuda":
+        return K.gptq_block, scale, zp, col_group
+    if block_size > K.GPTQ_MAX_BLOCK:
+        raise K.KernelUnsupported(f"gptq block takes blocks of at most {K.GPTQ_MAX_BLOCK} "
+                                  f"columns: {block_size}")
+    if Hinv_u.device != W.device:
+        raise ValueError("gptq_block: tensors on more than one device")
+    scale, zp, col_group = K.gptq_operands(W.device, scale, None if sym else zp, col_group)
+    return K.gptq_block_launcher(W.device), scale, zp, col_group
+
+
 def _gptq_solve(W: torch.Tensor, Hinv_u: torch.Tensor, scale: torch.Tensor,
                 zp: Optional[torch.Tensor], col_group: torch.Tensor, *, block_size: int,
                 qmin: float, qmax: float, sym: bool) -> torch.Tensor:
@@ -110,10 +131,10 @@ def _gptq_solve(W: torch.Tensor, Hinv_u: torch.Tensor, scale: torch.Tensor,
     col_group (K,) int32 maps processing column -> scale group. Returns the
     quantized grid values Q (N, K) f32 (integer levels, before the scales).
     Each block's column loop is K11 (``ops/kernels.py:gptq_block``) on the
-    card, its plain version on the CPU: equal, bit for bit, to
-    :func:`gptq_solve_plain` on either device."""
-    return _eliminate(K.gptq_block, W, Hinv_u, scale, zp, col_group, block_size, qmin, qmax,
-                      sym)
+    card, its plain version on the CPU (:func:`_block_route`): equal, bit
+    for bit, to :func:`gptq_solve_plain` on either device."""
+    block, scale, zp, col_group = _block_route(W, Hinv_u, scale, zp, col_group, block_size, sym)
+    return _eliminate(block, W, Hinv_u, scale, zp, col_group, block_size, qmin, qmax, sym)
 
 
 def gptq_solve_plain(W: torch.Tensor, Hinv_u: torch.Tensor, scale: torch.Tensor,

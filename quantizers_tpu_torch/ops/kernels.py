@@ -759,8 +759,9 @@ def gptq_block_plain(w_blk: torch.Tensor, u_blk: torch.Tensor, scale: torch.Tens
     ``scale`` (N, G). Returns the grid values Q and the errors Err, (N, bs)
     f32. It works on the transposed block, so that a column and the update
     of the later ones are contiguous rows (on a CPU 30x faster at N 9728
-    than strided columns, with the same roundings)."""
-    wt = w_blk.float().t().contiguous()
+    than strided columns, with the same roundings), in a buffer of its own
+    (``.t().contiguous()`` of one row is a view of it)."""
+    wt = w_blk.new_empty((w_blk.shape[1], w_blk.shape[0]), dtype=torch.float32).copy_(w_blk.t())
     st = scale.float().t().contiguous()
     zt = None if zp is None else zp.t().contiguous()
     q_out, err_out = torch.empty_like(wt), torch.empty_like(wt)
@@ -784,6 +785,60 @@ def _rows_aligned(t: torch.Tensor) -> bool:
     return t.stride(1) == 1 and t.stride(0) % 4 == 0 and t.data_ptr() % 16 == 0
 
 
+def gptq_operands(device: torch.device, scale: torch.Tensor, zp: Optional[torch.Tensor],
+                  col_group: torch.Tensor):
+    """The scales, zero points (None: symmetric) and column groups of a
+    whole solve as K11 reads them: contiguous f32, int32 and int32 on
+    ``device``. :func:`gptq_block` makes them at every call; a solve on the
+    card makes them once (``oneshot/gptq.py:_block_route``) and hands them
+    to :func:`gptq_block_launcher`'s launches, block by block."""
+    scale = scale.float().contiguous()
+    cg = col_group.to(torch.int32).contiguous()
+    zp = None if zp is None else zp.to(torch.int32).contiguous()
+    if any(t.device != device for t in (scale, cg, *(() if zp is None else (zp,)))):
+        raise ValueError("gptq_block: tensors on more than one device")
+    if zp is not None and zp.shape != scale.shape:
+        raise ValueError("gptq_block: zero points unlike the scales")
+    return scale, zp, cg
+
+
+def _gptq_launch(w_blk: torch.Tensor, u_blk: torch.Tensor, scale: torch.Tensor,
+                 zp: Optional[torch.Tensor], cg: torch.Tensor, qmin: float, qmax: float, *,
+                 sms: int, stream: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K11 on one block of operands that :func:`gptq_operands` made: a block
+    whose width is not a multiple of 4 is padded with columns that come
+    after all of its own (so they change none of its results), W and U rows
+    that are not 16-byte aligned are copied."""
+    n, bs = w_blk.shape
+    pad = -bs % 4
+    if pad:
+        w_blk = F.pad(w_blk.float(), (0, pad))
+        u_blk = F.pad(u_blk.float(), (0, pad, 0, pad))
+        u_blk.diagonal()[bs:] = 1.0
+        cg = F.pad(cg, (0, pad))
+    bw = bs + pad
+    if w_blk.dtype != torch.float32 or not _rows_aligned(w_blk):
+        w_blk = aligned16(w_blk.float().contiguous())
+    if u_blk.dtype != torch.float32 or not _rows_aligned(u_blk):
+        u_blk = aligned16(u_blk.float().contiguous())
+    q, err = torch.empty((2, n, bw), dtype=torch.float32, device=w_blk.device)
+    rc = _build.load().qtt_gptq_block(
+        w_blk.data_ptr(), w_blk.stride(0), u_blk.data_ptr(), u_blk.stride(0), scale.data_ptr(),
+        None if zp is None else zp.data_ptr(), scale.shape[1], cg.data_ptr(), q.data_ptr(),
+        err.data_ptr(), n, bw, float(qmin), float(qmax), sms, stream)
+    _build.check(rc, "gptq_block")
+    gptq_block.launches += 1
+    return (q[:, :bs].contiguous(), err[:, :bs].contiguous()) if pad else (q, err)
+
+
+def gptq_block_launcher(device: torch.device) -> Callable:
+    """:func:`gptq_block`'s launch on ``device`` (a card), for operands that
+    :func:`gptq_operands` made: the block function of a solve on the card,
+    with the SM count and the current stream read once."""
+    return functools.partial(_gptq_launch, sms=_sm_count(device.index or 0),
+                             stream=_stream(device))
+
+
 @_count
 def gptq_block(w_blk: torch.Tensor, u_blk: torch.Tensor, scale: torch.Tensor,
                zp: Optional[torch.Tensor], col_group: torch.Tensor, qmin: float,
@@ -802,36 +857,10 @@ def gptq_block(w_blk: torch.Tensor, u_blk: torch.Tensor, scale: torch.Tensor,
         return gptq_block_plain(w_blk, u_blk, scale, zp, col_group, qmin, qmax)
     if not w_blk.is_cuda:
         raise ValueError(f"gptq_block: no kernel for device {w_blk.device}")
-    pad = -bs % 4
-    if pad:
-        w_blk = F.pad(w_blk.float(), (0, pad))
-        u_blk = F.pad(u_blk.float(), (0, pad, 0, pad))
-        u_blk.diagonal()[bs:] = 1.0
-        col_group = F.pad(col_group, (0, pad))
-    bw = bs + pad
-    if w_blk.dtype != torch.float32 or not _rows_aligned(w_blk):
-        w_blk = aligned16(w_blk.float().contiguous())
-    u_blk = u_blk.float()
-    if u_blk.stride(1) != 1:
-        u_blk = u_blk.contiguous()
-    scale = scale.float().contiguous()
-    cg = col_group.to(torch.int32).contiguous()
-    zp = None if zp is None else zp.to(torch.int32).contiguous()
-    if any(t.device != w_blk.device for t in (u_blk, scale, cg, *(() if zp is None else (zp,)))):
+    if u_blk.device != w_blk.device:
         raise ValueError("gptq_block: tensors on more than one device")
-    if zp is not None and zp.shape != scale.shape:
-        raise ValueError("gptq_block: zero points unlike the scales")
-    q = torch.empty((n, bw), dtype=torch.float32, device=w_blk.device)
-    err = torch.empty_like(q)
-    lib = _build.load()
-    rc = lib.qtt_gptq_block(w_blk.data_ptr(), w_blk.stride(0), u_blk.data_ptr(), u_blk.stride(0),
-                            scale.data_ptr(), None if zp is None else zp.data_ptr(),
-                            scale.shape[1], cg.data_ptr(), q.data_ptr(), err.data_ptr(), n, bw,
-                            float(qmin), float(qmax), _sm_count(w_blk.device.index or 0),
-                            _stream(w_blk.device))
-    _build.check(rc, "gptq_block")
-    gptq_block.launches += 1
-    return (q[:, :bs].contiguous(), err[:, :bs].contiguous()) if pad else (q, err)
+    scale, zp, cg = gptq_operands(w_blk.device, scale, zp, col_group)
+    return gptq_block_launcher(w_blk.device)(w_blk, u_blk, scale, zp, cg, qmin, qmax)
 
 
 ALL_KERNELS = (w4_matmul, w8_matmul, decode_attention, nvfp4_matmul, nvfp4_i8_matmul,

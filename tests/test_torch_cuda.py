@@ -1310,6 +1310,77 @@ def test_gptq_block_offset_view_and_unaligned_c_entry(gen):
     assert rc != 0
 
 
+#: one K11 launch where its layout (a row on 8 lanes up to 32 rows an SM,
+#: on 4 above; 4 or 8 rows a warp, 16 to 80 rows a block; U staged with
+#: zeros past the block's width) can go wrong: (rows, block width,
+#: symmetric, distinct groups in the block, W holding NaN and infinities and
+#: a row with a zero scale). Row counts that fill no warp or block (1, 3, 7,
+#: 33, 1023, 4357), 128 distinct groups in one block (actorder weight),
+#: asymmetric zero points, blocks of 4, 36 and 100 columns, each layout.
+#: ``tests/test_torch_gptq.py`` holds the plain version on the same inputs
+#: against the JAX package's column loop.
+GPTQ_EDGES = {"n1": (1, 128, True, 4, False), "n3": (3, 128, True, 4, False),
+              "n7": (7, 128, False, 4, False), "n33": (33, 128, True, 4, False),
+              "n1023": (1023, 128, True, 4, False), "n1023_asym": (1023, 128, False, 4, False),
+              "groups128": (1024, 128, True, 128, False),
+              "groups128_asym": (257, 128, False, 128, False),
+              "bs4": (64, 4, True, 1, False), "bs36": (257, 36, False, 2, False),
+              "bs100": (100, 100, True, 4, False), "special": (1023, 128, True, 4, True),
+              "special_asym": (129, 128, False, 4, True),
+              "wide_n4357_asym": (4357, 128, False, 4, False),
+              "wide_groups128": (4500, 128, True, 128, False),
+              "wide_bs36": (4300, 36, False, 2, False),
+              "wide_special": (4400, 128, True, 4, True)}
+
+
+def gptq_edge_block(case):
+    """Seeded numpy inputs of one K11 launch for ``GPTQ_EDGES[case]``: W
+    (N, bs) f32; U (bs, bs), the upper factor of a damped seeded Hessian's
+    inverse (H^-1 = U^T U); scales (N, G) f32 and zero points (N, G) int32
+    (None when symmetric) over G = groups + 3 groups, of which col_group
+    (bs,) int32 names ``groups`` (each column its own, shuffled, when there
+    are as many as columns; else contiguous runs); qmin and qmax of a 4-bit
+    grid."""
+    n, bs, sym, groups, special = GPTQ_EDGES[case]
+    rng = np.random.default_rng(list(GPTQ_EDGES).index(case))
+    w = (rng.standard_normal((n, bs)) * 0.02).astype(np.float32)
+    x = rng.standard_normal((2 * bs + 8, bs))
+    x[:, ::3] *= 10.0
+    h = 2.0 * x.T @ x
+    h += 0.01 * np.mean(np.diag(h)) * np.eye(bs)
+    u = np.ascontiguousarray(np.linalg.cholesky(np.linalg.inv(h)).T.astype(np.float32))
+    names = rng.permutation(groups + 3)[:groups]
+    cg = names[rng.permutation(bs) if groups == bs else np.arange(bs) * groups // bs]
+    scale = rng.uniform(0.002, 0.006, (n, groups + 3)).astype(np.float32)
+    zp = None if sym else rng.integers(0, 16, (n, groups + 3)).astype(np.int32)
+    if special:  # NaN, +inf and -inf in W; a row with a zero scale (w / 0, 0 / 0)
+        w[0, 5], w[1, 0], w[2, bs - 1] = np.nan, np.inf, -np.inf
+        scale[3] = 0.0
+        w[3, 2] = 0.0
+    qmin, qmax = (-8.0, 7.0) if sym else (0.0, 15.0)
+    return w, u, scale, zp, cg.astype(np.int32), qmin, qmax
+
+
+@pytest.mark.parametrize("case", list(GPTQ_EDGES))
+def test_gptq_block_edges_match_plain_bit_for_bit(gen, case):
+    """One launch on each of GPTQ_EDGES: Q and Err against the plain
+    version's on the same inputs, bit for bit, NaN where it has NaN."""
+    w, u, scale, zp, cg, qmin, qmax = gptq_edge_block(case)
+    w, u, scale, cg = (torch.from_numpy(a).cuda() for a in (w, u, scale, cg))
+    zp = None if zp is None else torch.from_numpy(zp).cuda()
+    before = K.gptq_block.launches
+    q, err = K.gptq_block(w, u, scale, zp, cg, qmin, qmax)
+    assert K.gptq_block.launches == before + 1
+    q_ref, err_ref = K.gptq_block_plain(w, u, scale, zp, cg, qmin, qmax)
+    torch.cuda.synchronize()
+    for got, ref in ((q, q_ref), (err, err_ref)):
+        assert got.shape == ref.shape == w.shape
+        assert torch.equal(got.isnan(), ref.isnan())
+        assert torch.equal(got.nan_to_num(), ref.nan_to_num()), int((got != ref).sum())
+    if GPTQ_EDGES[case][4]:
+        assert bool(q[0, 5].isnan()) and bool(err[4:].isfinite().all())
+
+
 @pytest.mark.parametrize("k", [512, 2560])
 def test_gptq_device_factor_matches_the_host_factor(gen, k):
     """``_ufactor`` (f32 cuSOLVER Cholesky and triangular solve on the card)

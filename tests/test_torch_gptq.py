@@ -67,6 +67,7 @@ from quantizers_tpu_torch.oneshot.sites import layer_sites
 from quantizers_tpu_torch.ops import kernels as K
 from quantizers_tpu_torch.ops.linear import from_quantized
 from quantizers_tpu_torch.recipes import parse_recipe
+from test_torch_cuda import GPTQ_EDGES, gptq_edge_block
 
 U_ATOL = 1e-5  # of the largest |U|
 OBJ_RTOL = 1e-3
@@ -192,21 +193,49 @@ def test_solve_matches_jax_given_the_same_factor(K_, sym, g, actorder):
     assert K.gptq_block.launches == 0  # the CPU never launches
 
 
-def test_block_plain_is_the_jax_column_loop():
+@pytest.mark.parametrize("case", ["jax_qparams", *GPTQ_EDGES])
+def test_block_plain_is_the_jax_column_loop(case):
     """One block by hand: the plain version's column loop against the
-    formula of the JAX package's col_step, written out in float32 numpy."""
-    a = _solve_inputs(64, False, 32, None)
-    W, U, s, z, cg = (a[k] for k in ("W", "U", "scale", "zp", "cg"))
+    formula of the JAX package's col_step, written out in float32 numpy, on
+    the block of a JAX-made solve (``jax_qparams``) and on each input that
+    the card tests hold K11 to (``tests/test_torch_cuda.py:GPTQ_EDGES``:
+    row counts, 128 groups in a block, zero points, narrow blocks, NaN,
+    infinities and a zero scale)."""
+    if case == "jax_qparams":
+        a = _solve_inputs(64, False, 32, None)
+        W, U, s, z, cg = (a[k] for k in ("W", "U", "scale", "zp", "cg"))
+        qmin, qmax = -8.0, 7.0
+    else:
+        W, U, s, z, cg, qmin, qmax = gptq_edge_block(case)
     q, err = K.gptq_block_plain(torch.from_numpy(W), torch.from_numpy(U), torch.from_numpy(s),
-                                torch.from_numpy(z), torch.from_numpy(cg), -8.0, 7.0)
+                                None if z is None else torch.from_numpy(z),
+                                torch.from_numpy(cg), qmin, qmax)
     w = W.copy()
-    for i in range(64):
-        x = w[:, i] / s[:, cg[i]] + z[:, cg[i]].astype(np.float32)
-        qi = np.clip(np.round(x), -8, 7).astype(np.float32)
-        e = (w[:, i] - (qi - z[:, cg[i]]) * s[:, cg[i]]) / U[i, i]
-        w[:, i + 1:] -= e[:, None] * U[i, i + 1:][None, :]
-        np.testing.assert_array_equal(q[:, i].numpy(), qi)
-        np.testing.assert_array_equal(err[:, i].numpy(), e)
+    with np.errstate(all="ignore"):  # the zero scale and the infinities
+        for i in range(W.shape[1]):
+            g = cg[i]
+            zf = None if z is None else z[:, g].astype(np.float32)
+            x = w[:, i] / s[:, g]
+            if zf is not None:
+                x = x + zf
+            qi = np.clip(np.round(x), np.float32(qmin), np.float32(qmax)).astype(np.float32)
+            e = (w[:, i] - (qi if zf is None else qi - zf) * s[:, g]) / U[i, i]
+            w[:, i + 1:] -= e[:, None] * U[i, i + 1:][None, :]
+            np.testing.assert_array_equal(q[:, i].numpy(), qi)
+            np.testing.assert_array_equal(err[:, i].numpy(), e)
+
+
+@pytest.mark.parametrize("n", [1, 3])
+def test_block_plain_leaves_its_input_alone(n):
+    """The plain version works on a copy of W: with one row, W's transpose
+    is contiguous, and ``.t().contiguous()`` would hand back a view that the
+    elimination then writes into."""
+    W, U, s, z, cg, qmin, qmax = gptq_edge_block("n1")
+    W = np.repeat(W, n, axis=0)
+    w = torch.from_numpy(W.copy())
+    K.gptq_block_plain(w, torch.from_numpy(U), torch.from_numpy(np.repeat(s, n, axis=0)), None,
+                       torch.from_numpy(cg), qmin, qmax)
+    np.testing.assert_array_equal(w.numpy(), W)
 
 
 def test_block_refuses_what_the_kernel_does_not_take():
