@@ -10,8 +10,9 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the serving and evaluation paths give it, with timings
    beside the bound (the fp8 matmul and MLA decode kernels at path E's,
-   the W8A8 int8 GEMM at Qwen3-4B's projections, unfused and as path I
-   serves them, bit for bit; GPTQ's column elimination K11 through whole
+   K10, the W8A8 linear with its per-token quantizer inside, at Qwen3-4B's
+   projections, unfused and as path I serves them, with its edge rows, and
+   its GEMM alone on int8 codes, bit for bit; GPTQ's column elimination K11 through whole
    solves at path J's shapes, bit for bit);
 4. serve, slice 1: a Qwen3-4B-shaped W4A16 model at full width and depth
    (random weights from a seeded generator), ``serving_layout(head_bits=8)``,
@@ -76,8 +77,10 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
     (K1, K2, K3);
 20. path I (slice 7b): the same checkpoint with ``recipe_w8a8_int8.yaml``
     (dynamic per-token int8 activations), K10 on every propagate matmul,
-    then ``cli/serve.main`` and a drive with exact per-step K10 launches
-    (phase 3 holds K10 bit-exact against its plain version);
+    then ``cli/serve.main`` and a drive with exact per-step K10 launches,
+    one a W8A8 linear (phase 3 holds K10 bit-exact against its plain
+    version); the drive's decode ms a step, device busy and launches a
+    step are printed on a line of their own;
 21. card against CPU: AWQ and SmoothQuant + W8A8 on the first 2 layers of
     path F's model, ``recipe_minimax_experts_only_awq.yaml`` on the first
     layer of path G's (each mapping's pick and ``x_mean``, the codes, the
@@ -2713,18 +2716,17 @@ class K10Plain:
     def __enter__(self):
         from quantizers_tpu_torch.ops import kernels as K
 
-        self.mod, self.orig = K, K.w8a8_matmul
+        self.mod, self.orig = K, K.w8a8_token_matmul
 
-        def plain(xq, sx, lin, out_dtype=torch.bfloat16):
+        def plain(x, lin):
             k, n = lin.in_features, lin.out_features
-            y = K.w8a8_matmul_plain(xq.reshape(-1, k), sx.reshape(-1).float(), lin.weight,
-                                    lin.scale)
-            return y.to(out_dtype).reshape(*xq.shape[:-1], n)
-        K.w8a8_matmul = plain
+            y = K.w8a8_token_matmul_plain(x.reshape(-1, k), lin)
+            return y.to(x.dtype).reshape(*x.shape[:-1], n)
+        K.w8a8_token_matmul = plain
         return self
 
     def __exit__(self, *exc):
-        self.mod.w8a8_matmul = self.orig
+        self.mod.w8a8_token_matmul = self.orig
         return False
 
 
@@ -2994,12 +2996,11 @@ def bound_int8(nbytes: float, ops: float) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def check_w8a8(gen, k: int, n: int, m: int, timed: bool, scale_dtype=torch.bfloat16,
+def check_w8a8(gen, k: int, n: int, m: int, scale_dtype=torch.bfloat16,
                out_dtype=torch.bfloat16) -> dict:
-    """K10 against its plain version at one shape, bit for bit (both sum the
-    int8 products exactly and scale as the JAX package does), twice; with
-    ``timed``, its time, device time, the plain version's, the bound and
-    torch._int_mm's device time (m padded to INT_MM_MIN_ROWS below it)."""
+    """K10's GEMM alone (the int8-codes entry, ``w8a8_matmul``) against its
+    plain version at one shape, bit for bit (both sum the int8 products
+    exactly and scale as the JAX package does), twice."""
     from quantizers_tpu_torch.core.numerics import dynamic_quantize_token_int8
     from quantizers_tpu_torch.ops import kernels as K
 
@@ -3018,23 +3019,97 @@ def check_w8a8(gen, k: int, n: int, m: int, timed: bool, scale_dtype=torch.bfloa
           f"{label}: differs from run to run")
     check(K.w8a8_matmul.launches == before + 2, f"{label}: launches not counted")
     K.w8a8_matmul.launches = before  # checks are not main-path launches
-    row = {"m": m, "k": k, "n": n, "scale_dtype": str(scale_dtype), "out_dtype": str(out_dtype),
-           "max_abs_err": err, "tol": 0.0,
-           "splits": K.w8a8_splits(m, k, n,
-                                   torch.cuda.get_device_properties(0).multi_processor_count)}
+    return {"m": m, "k": k, "n": n, "scale_dtype": str(scale_dtype), "out_dtype": str(out_dtype),
+            "max_abs_err": err, "tol": 0.0,
+            "plan": tuple(K.w8a8_plan(m, k, n, torch.cuda.get_device_properties(0)
+                                      .multi_processor_count))}
+
+
+#: 0.5 - 2^-25: its f32 |q| + 0.5 rounds up to 1.0 (roundf gives 0)
+W8A8_TIE = 0.5 - 2.0 ** -25
+#: (m, K, N) of the rows that reach the quantizer's traps: decode (one
+#: launch) at path I's q|k|v and down, the batcher's 64 rows, the row
+#: prefill (the quantizer pass), and a K and N tail
+W8A8_EDGE = ((8, 2560, 6144), (8, 9728, 2560), (64, 4096, 2560), (128, 2560, 1024),
+             (16, 200, 300))
+
+
+def w8a8_edge_rows(x):
+    """x (f32) with rows that reach the quantizer's traps: all zero (the
+    1e-12 floor), the tie (absmax 127.5 makes the scale 1.0, so q = x),
+    +inf, -inf, NaN, and all at +-127.5 (the clamp)."""
+    k = x.shape[1]
+    x[1] = 0.0
+    x[2] = W8A8_TIE
+    x[2, 0], x[2, 1], x[2, 2] = 127.5, -W8A8_TIE, 2.5
+    x[3, 5] = float("inf")
+    x[4, 7] = float("-inf")
+    x[5, 3] = float("nan")
+    x[6] = torch.where(torch.arange(k, device=x.device) % 2 == 1, 127.5, -127.5)
+    return x
+
+
+def same_nan(a, b) -> bool:
+    """Equal bit for bit but that NaN equals NaN."""
+    return bool(torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(), b.nan_to_num()))
+
+
+def check_w8a8_token(gen, k: int, n: int, m: int, timed: bool, scale_dtype=torch.bfloat16,
+                     x_dtype=torch.bfloat16, edge: bool = False) -> dict:
+    """K10, the W8A8 linear with its per-token quantizer inside
+    (``w8a8_token_matmul``), against its plain version at one shape, bit
+    for bit (with ``edge``, x in f32 with w8a8_edge_rows: NaN equal to
+    NaN, those rows all NaN), twice. With ``timed``: its time and device
+    time, the plain version's, the bound (x read and the output written in
+    x's dtype), torch._int_mm's device time on the codes (m padded to
+    INT_MM_MIN_ROWS below it), and the unfused composition's (the PyTorch
+    quantizer, then K10's GEMM alone on its codes)."""
+    from quantizers_tpu_torch.core.numerics import dynamic_quantize_token_int8
+    from quantizers_tpu_torch.ops import kernels as K
+
+    lin = w8a8_linear(gen, k, n, scale_dtype)
+    x = (torch.randn((m, k), device=gen.device, generator=gen) * 2).to(
+        torch.float32 if edge else x_dtype)
+    if edge:
+        x = w8a8_edge_rows(x)
+    before, before_gemm = K.w8a8_token_matmul.launches, K.w8a8_matmul.launches
+    got = K.w8a8_token_matmul(x, lin)
+    ref = K.w8a8_token_matmul_plain(x, lin).to(x.dtype)
+    torch.cuda.synchronize()
+    label = f"w8a8_token_matmul {m}x{k}x{n} {x.dtype}{' edge rows' if edge else ''}"
+    err = (got.float() - ref.float()).nan_to_num().abs().max().item()
+    check(same_nan(got, ref), f"{label}: max |err| {err:.4g} against the plain version")
+    if edge:
+        check(bool(got[3:6].isnan().all()) and not bool(got[[0, 1, 2, 6]].isnan().any())
+              and bool((got[1] == 0).all()), f"{label}: the edge rows' NaN pattern")
+    else:
+        check(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
+    check(same_nan(K.w8a8_token_matmul(x, lin), got), f"{label}: differs from run to run")
+    check(K.w8a8_token_matmul.launches == before + 2, f"{label}: launches not counted")
+    K.w8a8_token_matmul.launches = before  # checks are not main-path launches
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    row = {"m": m, "k": k, "n": n, "scale_dtype": str(scale_dtype), "x_dtype": str(x.dtype),
+           "edge": edge, "max_abs_err": err, "tol": 0.0, "plan": tuple(K.w8a8_plan(m, k, n, sms))}
     if not timed:
         return row
-    nbytes = m * k + k * n + 4 * m + n * lin.scale.element_size() + m * n * 2
+    nbytes = (m * k + m * n) * x.element_size() + k * n + n * lin.scale.element_size()
     copies = [lin] + [dataclasses.replace(lin, weight=lin.weight.clone(), scale=lin.scale.clone())
                       for _ in range(copies_for(k * n) - 1)]
     wsrc = rotating(copies)
-    row["ms"] = cuda_ms(lambda: K.w8a8_matmul(xq, sx, wsrc()))
-    row["dev_ms"] = device_ms(lambda: K.w8a8_matmul(xq, sx, wsrc()))
-    K.w8a8_matmul.launches = before
-    row["plain_ms"] = cuda_ms(lambda: K.w8a8_matmul_plain(xq, sx.reshape(-1), lin.weight,
-                                                          lin.scale), iters=3, warmup=1)
+    row["ms"] = cuda_ms(lambda: K.w8a8_token_matmul(x, wsrc()))
+    row["dev_ms"] = device_ms(lambda: K.w8a8_token_matmul(x, wsrc()))
+    K.w8a8_token_matmul.launches = before
+    row["plain_ms"] = cuda_ms(lambda: K.w8a8_token_matmul_plain(x, lin), iters=3, warmup=1)
+
+    def unfused():
+        q, sq = dynamic_quantize_token_int8(x.float())
+        return K.w8a8_matmul(q, sq, wsrc(), x.dtype)
+    row["unfused_ms"] = cuda_ms(unfused)
+    row["unfused_dev_ms"] = device_ms(unfused)
+    K.w8a8_matmul.launches = before_gemm
+    xq, _ = dynamic_quantize_token_int8(x.float())
     mp = max(m, INT_MM_MIN_ROWS)
-    xp = torch.zeros((mp, k), dtype=torch.int8, device=xq.device)
+    xp = torch.zeros((mp, k), dtype=torch.int8, device=x.device)
     xp[:m] = xq
     row["library_rows"] = mp
     row["library_ms"] = cuda_ms(lambda: torch._int_mm(xp, wsrc().weight))
@@ -3044,39 +3119,59 @@ def check_w8a8(gen, k: int, n: int, m: int, timed: bool, scale_dtype=torch.bfloa
 
 
 def w8a8_kernels(gen, detail) -> dict:
-    """Phase 3, K10: Qwen3-4B's seven projections and path I's fused ones
-    at W8A8_ROWS rows (timed at W8A8_TIMED), the W8A8_OTHER shapes, f32
-    scales and an f32 output once each, and x's codes at an unaligned base
-    (the wrapper copies them; the C entry refuses an unaligned pointer)."""
+    """Phase 3, K10: the W8A8 linear with its quantizer inside at Qwen3-4B's
+    seven projections and path I's fused ones at W8A8_ROWS rows (timed at
+    W8A8_TIMED), the W8A8_OTHER shapes, f32 scales, f32 and f16 x, the
+    edge rows (W8A8_EDGE); K10's GEMM alone on int8 codes at path I's
+    served shapes, the W8A8_OTHER shapes and an f32 output; x and the codes
+    at an unaligned base (the wrappers copy them; the C entry refuses an
+    unaligned pointer)."""
     from quantizers_tpu_torch.core.numerics import dynamic_quantize_token_int8
     from quantizers_tpu_torch.ops import _build
     from quantizers_tpu_torch.ops import kernels as K
 
-    rows = {f"{name}@m{m}": check_w8a8(gen, k, n, m, m in W8A8_TIMED)
+    rows = {f"{name}@m{m}": check_w8a8_token(gen, k, n, m, m in W8A8_TIMED)
             for m in W8A8_ROWS for name, (k, n) in {**QWEN3_PROJ, **QWEN3_SERVED}.items()}
     for m, k, n in W8A8_OTHER:
-        rows[f"{m}x{k}x{n}"] = check_w8a8(gen, k, n, m, False)
-    rows["f32_scales@m8"] = check_w8a8(gen, 2560, 4096, 8, False, scale_dtype=torch.float32)
-    rows["f32_out@m512"] = check_w8a8(gen, 2560, 1024, 512, False, out_dtype=torch.float32)
+        rows[f"{m}x{k}x{n}"] = check_w8a8_token(gen, k, n, m, False)
+    rows["f32_scales@m8"] = check_w8a8_token(gen, 2560, 4096, 8, False, scale_dtype=torch.float32)
+    rows["f32_x@m8"] = check_w8a8_token(gen, 2560, 4096, 8, False, x_dtype=torch.float32)
+    rows["f16_x@m40"] = check_w8a8_token(gen, 4096, 2560, 40, False, x_dtype=torch.float16)
+    rows["f32_x@m512"] = check_w8a8_token(gen, 2560, 1024, 512, False, x_dtype=torch.float32)
+    for m, k, n in W8A8_EDGE:
+        rows[f"edge {m}x{k}x{n}"] = check_w8a8_token(gen, k, n, m, False, edge=True)
+    gemm = {f"{name}@m{m}": check_w8a8(gen, k, n, m)
+            for m in W8A8_TIMED for name, (k, n) in QWEN3_SERVED.items()}
+    for m, k, n in W8A8_OTHER:
+        gemm[f"{m}x{k}x{n}"] = check_w8a8(gen, k, n, m)
+    gemm["f32_out@m512"] = check_w8a8(gen, 2560, 1024, 512, out_dtype=torch.float32)
     lin = w8a8_linear(gen, 2560, 4096)
-    xq, sx = dynamic_quantize_token_int8(
-        torch.randn((8, 2560), device=gen.device, generator=gen) * 2)
-    xo = offset_view(xq)
-    before = K.w8a8_matmul.launches
-    same = bool(torch.equal(K.w8a8_matmul(xo, sx, lin), K.w8a8_matmul(xq, sx, lin)))
-    check(xo.data_ptr() % 16 != 0 and same, "w8a8_matmul: a call on an offset view differs")
+    x = (torch.randn((8, 2560), device=gen.device, generator=gen) * 2).bfloat16()
+    xq, sx = dynamic_quantize_token_int8(x.float())
+    xo, xqo = offset_view(x), offset_view(xq)
+    before, before_gemm = K.w8a8_token_matmul.launches, K.w8a8_matmul.launches
+    same = bool(torch.equal(K.w8a8_token_matmul(xo, lin), K.w8a8_token_matmul(x, lin)))
+    same_gemm = bool(torch.equal(K.w8a8_matmul(xqo, sx, lin), K.w8a8_matmul(xq, sx, lin)))
+    check(xo.data_ptr() % 16 != 0 and same, "w8a8_token_matmul: a call on an offset view differs")
+    check(xqo.data_ptr() % 16 != 0 and same_gemm, "w8a8_matmul: a call on an offset view differs")
     out = torch.empty((8, 4096), dtype=torch.bfloat16, device=gen.device)
-    err = _build.load().qtt_w8a8_matmul(
-        xo.data_ptr(), lin.weight.data_ptr(), sx.data_ptr(), lin.scale.data_ptr(), out.data_ptr(),
-        None, 8, 2560, 4096, 0, 0, 1, torch.cuda.current_stream().cuda_stream)
-    check(err != 0, "w8a8_matmul: the C entry took an unaligned pointer")
-    K.w8a8_matmul.launches = before
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = _build.load()
+    err = lib.qtt_w8a8_matmul(None, lin.weight.data_ptr(), None, lin.scale.data_ptr(),
+                              out.data_ptr(), xo.data_ptr(), 8, 2560, 4096, 0, 0, 4, stream)
+    err_gemm = lib.qtt_w8a8_matmul(xqo.data_ptr(), lin.weight.data_ptr(), sx.data_ptr(),
+                                   lin.scale.data_ptr(), out.data_ptr(), None, 8, 2560, 4096, 0, 0,
+                                   1, stream)
+    check(err != 0 and err_gemm != 0, "w8a8: the C entry took an unaligned pointer")
+    K.w8a8_token_matmul.launches, K.w8a8_matmul.launches = before, before_gemm
     rows["offset_view"] = {"offset_bytes": xo.data_ptr() % 16, "equal": same,
-                           "c_entry_refusal": _build.load().qtt_error_string(err).decode()}
-    for label, r in rows.items():
+                           "equal_gemm": same_gemm,
+                           "c_entry_refusal": lib.qtt_error_string(err).decode()}
+    for label, r in {**rows, **{f"gemm {k}": v for k, v in gemm.items()}}.items():
         log(f"[kernels] w8a8 {label}: {r}")
-    detail["kernels"]["w8a8_matmul"] = rows
-    return rows
+    detail["kernels"]["w8a8_token_matmul"] = rows
+    detail["kernels"]["w8a8_matmul"] = gemm
+    return {**rows, **{f"gemm {k}": v for k, v in gemm.items()}}
 
 
 class BatchShapes:
@@ -3185,7 +3280,7 @@ def served_linears(params, matmul: str) -> int:
     from quantizers_tpu_torch.ops.dispatch import is_w8a8
     from quantizers_tpu_torch.ops.linear import QuantLinear
 
-    takes = {"w8a8_matmul": is_w8a8, "fp8_matmul": lambda lin: lin.kind == "fp8"}[matmul]
+    takes = {"w8a8_token_matmul": is_w8a8, "fp8_matmul": lambda lin: lin.kind == "fp8"}[matmul]
 
     def walk(t):
         if isinstance(t, QuantLinear):
@@ -3194,7 +3289,7 @@ def served_linears(params, matmul: str) -> int:
     return walk(params["layers"][0])
 
 
-def drive_served(label: str, ckpt: Path, steps: int, matmul: str = "w8a8_matmul",
+def drive_served(label: str, ckpt: Path, steps: int, matmul: str = "w8a8_token_matmul",
                  device: str = "cuda") -> dict:
     """A W8A8 or FP8_BLOCK checkpoint as ``serve`` lays it out (int8 head):
     an 8 x 128 prefill, a 1 x 128 row prefill and ``steps`` greedy decode
@@ -3224,7 +3319,7 @@ def drive_served(label: str, ckpt: Path, steps: int, matmul: str = "w8a8_matmul"
         last, caches = prefill(params, spec, ids[:rows], caches)
         torch.cuda.synchronize()
         res[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3
-        kernel_rows = matmul == "w8a8_matmul" or rows * PREFILL <= KERNEL_MAX_ROWS
+        kernel_rows = matmul == "w8a8_token_matmul" or rows * PREFILL <= KERNEL_MAX_ROWS
         want = expect(**{matmul: per * L * kernel_rows,
                          "w8_matmul": int(rows * PREFILL <= KERNEL_MAX_ROWS)})
         got = K.launch_counts()
@@ -3268,7 +3363,7 @@ def oneshot_w8a8_phase(detail, tmp: Path, bf16: Path) -> dict:
     with W8A8Shapes() as k10, BatchShapes() as shapes:
         run = oneshot_cli("path I", write_run_config(tmp / "run_I.yaml", bf16, "recipe_w8a8_int8"),
                           out, tmp / "calibration_cache", card)
-    want = calibration_launches(spec, shapes.shapes, 1, "w8a8_matmul", every_m=True)
+    want = calibration_launches(spec, shapes.shapes, 1, "w8a8_token_matmul", every_m=True)
     check(run["records"] == spec.num_layers * 7,
           f"path I: {run['records']} records, want {spec.num_layers * 7}")
     check(run["launches"] == want, f"path I: calibration launches {run['launches']} != {want}")
@@ -3279,12 +3374,14 @@ def oneshot_w8a8_phase(detail, tmp: Path, bf16: Path) -> dict:
     torch.cuda.empty_cache()
     with k10:
         served = serve_output("path I", out, synthetic_text(),
-                              (("decode_attention",), ("w8_matmul",), ("w8a8_matmul",)), card)
+                              (("decode_attention",), ("w8_matmul",), ("w8a8_token_matmul",)),
+                              card)
         drive = drive_served("path I", out, SIDE_STEPS)
     log(f"[path I drive] ({card}) {drive}")
     shutil.rmtree(out)
     gen = torch.Generator(device="cuda").manual_seed(F_SEED)
-    held = {f"{m}x{k}x{n} {sdt} {adt}": check_w8a8(gen, k, n, m, False, sdt, adt)["max_abs_err"]
+    held = {f"{m}x{k}x{n} {sdt} {adt}":
+            check_w8a8_token(gen, k, n, m, False, sdt, adt)["max_abs_err"]
             for m, k, n, sdt, adt in sorted(k10.shapes, key=str)}
     check({(m, k) for m, k, _, _, _ in k10.shapes} >= {(8, 2560), (128, 2560), (1024, 2560)},
           f"path I: K10's shapes {sorted(held)} lack the drive's")
@@ -3436,13 +3533,13 @@ def card_vs_cpu_slice7(detail, tmp: Path, dense: Path, moe: Path,
     # layer, batches, the cross forward's kernel)
     cases = (("awq_w4a16", "recipe_awq_w4a16", None, dense, 2, 7, batches, "w4_matmul"),
              ("smoothquant_w8a8", "recipe_w8a8_int8", sq_w8a8, dense, 2, 7, batches,
-              "w8a8_matmul"),
+              "w8a8_token_matmul"),
              ("minimax_experts_only_awq", "recipe_minimax_experts_only_awq", None, moe, 1, 3 * E,
               one_row, "w4_matmul"))
     for name, recipe_name, recipe, ckpt, layers, per_layer, bs, kernel in cases:
         label = f"card vs CPU {name}"
         res = engine_on_both(ckpt, recipe_name, bs, ids, devices, recipe=recipe, cross=True,
-                             plain_k10=kernel == "w8a8_matmul", record="awq")
+                             plain_k10=kernel == "w8a8_token_matmul", record="awq")
         got, ref = (res[d] for d in devices)
         r = {"layers": layers, "seconds": {d: res[d]["s"] for d in devices},
              "flash_launches_card": got["flash"], "cross_launches_card": got["cross_launches"]}
@@ -3462,7 +3559,7 @@ def card_vs_cpu_slice7(detail, tmp: Path, dense: Path, moe: Path,
         check(got["cross_launches"][kernel] > 0, f"{label}: the card's forward never ran {kernel}")
         r.update(routes_agree(label, got["cross_routes"], ref["routes"]))
         lim = (dict(rtol=W8A8_LOGIT_RTOL, norm_rtol=W8A8_LOGIT_RTOL, tie_rtol=W8A8_LOGIT_RTOL)
-               if kernel == "w8a8_matmul" else {})
+               if kernel == "w8a8_token_matmul" else {})
         r["logits"] = logits_agree(label, got["cross_logits"], ref["logits"], **lim)
         if "cross_plain_k10_logits" in got:
             r["logits_k10_plain"] = logits_apart(got["cross_plain_k10_logits"], ref["logits"])
@@ -4559,8 +4656,9 @@ def main() -> int:
     def served_sum(rows, m, suffix=""):
         """K10 on path I's served layer (its four calls) at ``m`` rows, summed."""
         timed = [rows[f"{name}@m{m}"] for name in QWEN3_SERVED]
-        return {key + suffix: total(timed, key) for key in ("ms", "dev_ms", "plain_ms", "bound_ms",
-                                                            "library_ms", "library_dev_ms")}
+        return {key + suffix: total(timed, key)
+                for key in ("ms", "dev_ms", "plain_ms", "bound_ms", "library_ms",
+                            "library_dev_ms", "unfused_ms", "unfused_dev_ms")}
 
     src = "quantizers_tpu_torch/csrc/"
     w8_all = dict(w8_rows, **s2["w8_matmul_f32"])
@@ -4627,11 +4725,13 @@ def main() -> int:
          **{f"{key}_L{MAX_LEN - 1}": s5["mla_decode_attention"][f"L{MAX_LEN - 1}"][key]
             for key in ("ms", "dev_ms", "plain_ms", "bound_ms", "library_ms",
                         "library_dev_ms")}},
-        # K10: path I's served layer (q|k|v, o, gate|up, down: its four
-        # calls) at m 8 summed (a decoder layer's decode work), and at m 1024
-        {"name": "w8a8_matmul", "route": "cuda", "source": src + "w8a8_matmul.cu",
-         "replaces": "quantizers_tpu/ops/dispatch.py:49",
-         "launches": drive_i["decode_launches"]["w8a8_matmul"], "path": "I decode",
+        # K10: the W8A8 linear, its quantizer inside, on path I's served
+        # layer (q|k|v, o, gate|up, down: its four calls) at m 8 summed (a
+        # decoder layer's decode work), and at m 1024; "unfused": the
+        # PyTorch quantizer, then K10's GEMM alone
+        {"name": "w8a8_token_matmul", "route": "cuda", "source": src + "w8a8_matmul.cuh",
+         "replaces": "quantizers_tpu/ops/dispatch.py:33",
+         "launches": drive_i["decode_launches"]["w8a8_token_matmul"], "path": "I decode",
          "max_abs_err": max(r["max_abs_err"] for r in w8a8_rows.values() if "max_abs_err" in r),
          "tol": 0.0, **served_sum(w8a8_rows, 8), "bound_by": "bytes",
          **served_sum(w8a8_rows, 1024, "_m1024"), "bound_by_m1024": "operations"},
@@ -4646,7 +4746,7 @@ def main() -> int:
          "bound_by": "bytes", "library_ms": None},
     ]
     check(all(k["launches"] > 0 for k in kernels_line), "a kernel never launched on its path")
-    check(kernels_line[-2]["max_abs_err"] == 0.0, "w8a8_matmul: not bit-exact")
+    check(kernels_line[-2]["max_abs_err"] == 0.0, "w8a8_token_matmul: not bit-exact")
     check(kernels_line[-1]["max_abs_err"] == 0.0, "gptq_block: not bit-exact")
     detail["total_s"] = time.perf_counter() - t_start
     out_dir.mkdir(exist_ok=True)
@@ -4654,6 +4754,9 @@ def main() -> int:
     log(f"[done] {detail['total_s']:.1f} s; serve {json.dumps(detail['serve'])}; "
         f"path A {json.dumps({k: v for k, v in detail['serve_moe'].items() if k != 'profile'})}; "
         f"path E {json.dumps({k: v for k, v in detail['serve_mla'].items() if k != 'profile'})}")
+    print(json.dumps({"path_I_decode": {
+        key: drive_i[key] for key in ("layers", "ms_per_step", "device_busy_ms_per_step",
+                                      "idle_share", "launches_per_step")}}))
     print(json.dumps({"kernels": kernels_line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

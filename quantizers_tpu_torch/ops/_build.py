@@ -26,7 +26,8 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_kernels_build"
 SOURCES = ("w4_matmul.cu", "w8_matmul.cu", "decode_attention.cu", "nvfp4_matmul.cu",
            "moe_slot_ffn.cu", "moe_slot_gu_ffn.cu", "flash_attention.cu", "fp8_matmul.cu",
-           "mla_decode_attention.cu", "w8a8_matmul.cu", "gptq_block.cu")
+           "mla_decode_attention.cu", "w8a8_matmul.cu", "w8a8_matmul_f16.cu",
+           "w8a8_matmul_f32.cu", "gptq_block.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -59,7 +60,8 @@ SIGNATURES = {
     # q_abs, q_pe, new_c, new_p, cache_c, cache_p, lengths, ctx, B, H, r, dp, S, sm_scale, stream
     "qtt_mla_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                  ctypes.c_float, _P),
-    # xq, w8, sx, sw, out, ws (or NULL), M, K, N, sw_f32, out_f32, splits, stream
+    # xq, w8, sx, sw, out, x (NULL: xq are the codes), M, K, N, sw_f32, out_type, split,
+    # stream
     "qtt_w8a8_matmul": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # w, ldw, u, ldu, scale, zp (or NULL), groups, col_group, q, err, N, bs, qmin, qmax,
     # SMs, stream

@@ -17,7 +17,6 @@ from typing import Optional
 
 import torch
 
-from ..core.numerics import dynamic_quantize_token_int8
 from . import kernels
 from .linear import QuantLinear
 
@@ -55,14 +54,14 @@ def is_w8a8(lin: QuantLinear) -> bool:
 
 
 def w8a8_token_matmul(x: torch.Tensor, lin: QuantLinear) -> torch.Tensor:
-    """The W8A8 compute path: x quantized per token to symmetric int8
-    (:func:`~quantizers_tpu_torch.core.numerics.dynamic_quantize_token_int8`
+    """The W8A8 compute path: x quantized per token to symmetric int8 (as
+    :func:`~quantizers_tpu_torch.core.numerics.dynamic_quantize_token_int8`
     of ``x`` in f32), times the int8 weight, summed exactly in int32 and
-    scaled per token and per channel by the int8 GEMM kernel
-    (:func:`~quantizers_tpu_torch.ops.kernels.w8a8_matmul`), in ``x``'s
-    dtype. The JAX package's ``w8a8_token_matmul``, bit for bit."""
-    xq, sx = dynamic_quantize_token_int8(x.float())
-    return kernels.w8a8_matmul(xq, sx, lin, out_dtype=x.dtype)
+    scaled per token and per channel, in ``x``'s dtype, by K10
+    (:func:`~quantizers_tpu_torch.ops.kernels.w8a8_token_matmul`: one
+    launch at decode). The JAX package's ``w8a8_token_matmul``, bit for
+    bit."""
+    return kernels.w8a8_token_matmul(x, lin)
 
 
 def _rows(x: torch.Tensor) -> int:

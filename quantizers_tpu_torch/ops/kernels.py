@@ -11,10 +11,11 @@ current stream and raises if the launch fails. It adds one to its
   ``_w4_matmul_2d`` and ``_w4i_matmul_2d`` (W4A16, group scales);
 * :func:`w8_matmul` replaces ``_w8_matmul_2d`` (int8, channel or group,
   bf16 or f32 scales);
-* :func:`w8a8_matmul` replaces no Pallas kernel: the XLA int8
-  ``dot_general`` of ``quantizers_tpu/ops/dispatch.py`` ``w8a8_token_matmul``
-  (int8 activations and weights, int32 sums, per-token and per-channel
-  scales);
+* :func:`w8a8_token_matmul` replaces no Pallas kernel: the per-token int8
+  quantizer and XLA int8 ``dot_general`` of ``quantizers_tpu/ops/dispatch.py``
+  ``w8a8_token_matmul`` (int8 activations and weights, int32 sums,
+  per-token and per-channel scales); :func:`w8a8_matmul` is its GEMM alone,
+  on codes quantized beforehand;
 * :func:`decode_attention` replaces ``_decode_attention_call`` (one-token
   GQA attention with the new K/V row written into the cache in place);
 * :func:`nvfp4_matmul` replaces ``_nvfp4_matmul_2d`` (packed E2M1 codes)
@@ -43,11 +44,12 @@ built at the first launch.
 from __future__ import annotations
 
 import functools
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ..core.numerics import dynamic_quantize_token_int8
 from . import _build
 from ._launch import KernelUnsupported, _count, _stream, aligned16
 from .flash import flash_attention
@@ -198,12 +200,63 @@ def _launch_matmul(entry: str, wrapper: Callable, x2: torch.Tensor, lin: QuantLi
 
 
 # ---------------------------------------------------------------------------
-# W8A8: int8 activations (M, K) x int8 weights (K, N), int32 sums, per-token
-# and per-channel f32 scales
+# W8A8: activations quantized per token to int8 (or int8 codes with their f32
+# row scales) x int8 weights (K, N), int32 sums, per-token and per-channel
+# scales
 # ---------------------------------------------------------------------------
 
-#: K10's block tile (csrc/w8a8_matmul.cu): output rows, output columns, K step
-W8A8_TILE = (64, 128, 64)
+#: K10's block columns and K step (csrc/w8a8_matmul.cu)
+W8A8_BN, W8A8_BK = 128, 64
+#: its decode body's rows at most (in blocks of 16, 32 or 64; a block's
+#: share of x, its rows by its share of K's steps, within W8A8_X_SHARE
+#: bytes), its prefill bodies' block rows, columns and K steps (wgmma where
+#: N and K are multiples of 16, else mma.sync), and the most blocks of a
+#: cluster
+W8A8_DECODE_ROWS, W8A8_X_SHARE = 64, 96 * 1024
+W8A8_WG_TILE, W8A8_MMA_TILE, W8A8_MAX_SPLIT = (128, 128, 128), (64, 128, 64), 8
+
+
+class W8A8Plan(NamedTuple):
+    """How K10 runs one call: ``decode``, the one-launch body (the quantizer
+    inside) or the quantizer pass and the prefill GEMM; ``rows``, a block's
+    rows; ``split``, the blocks of a cluster that share one output tile's K."""
+
+    decode: bool
+    rows: int
+    split: int
+
+
+def _x_share(m: int, steps: int, split: int, elem: int) -> int:
+    """The decode body's share of x: a 64-column box of m rows (128-byte
+    aligned) for each of a block's K steps."""
+    return -(-steps // split) * (-(-m * W8A8_BK * elem // 128) * 128)
+
+
+def w8a8_plan(m: int, k: int, n: int, sms: int, elem: int = 2) -> W8A8Plan:
+    """K10's plan for (m, K, N) with x of ``elem`` bytes an element (1: the
+    int8 codes) on a card of ``sms`` SMs; the C entry makes the same choice
+    of body from the split. The decode body takes m <= W8A8_DECODE_ROWS
+    where some split of at most 8 holds a block's share of x; from the
+    least such split it doubles while the blocks stay within two an SM and
+    each keeps 4 K steps or more. The prefill bodies double their split
+    while the blocks are fewer than the SMs and each keeps 4 steps or
+    more."""
+    steps, cols = -(-k // W8A8_BK), -(-n // W8A8_BN)
+    split = 1
+    if m <= W8A8_DECODE_ROWS:
+        while split < W8A8_MAX_SPLIT and _x_share(m, steps, split, elem) > W8A8_X_SHARE:
+            split += 1
+        if _x_share(m, steps, split, elem) <= W8A8_X_SHARE:
+            while (split * 2 <= W8A8_MAX_SPLIT and cols * split * 2 <= 2 * sms
+                   and steps >= 8 * split):
+                split *= 2
+            return W8A8Plan(True, 16 if m <= 16 else 32 if m <= 32 else 64, split)
+        split = 1
+    bm, bn, bk = W8A8_WG_TILE if n % 16 == 0 and k % 16 == 0 else W8A8_MMA_TILE
+    steps, tiles = -(-k // bk), -(-n // bn) * -(-m // bm)
+    while split < W8A8_MAX_SPLIT and tiles * split < sms and steps >= 8 * split:
+        split *= 2
+    return W8A8Plan(False, bm, split)
 
 
 def _w8a8_reason(lin: QuantLinear) -> Optional[str]:
@@ -217,13 +270,20 @@ def _w8a8_reason(lin: QuantLinear) -> Optional[str]:
 
 def w8a8_matmul_plain(xq: torch.Tensor, sx: torch.Tensor, w8: torch.Tensor,
                       sw: torch.Tensor) -> torch.Tensor:
-    """K10's arithmetic in PyTorch, f32 out: the int8 products summed
-    exactly (both operands widened to float64, exact for every |sum| <
-    2^53; neither device has an integer ``matmul``), the sum rounded to f32,
-    then times the row's scale and the column's, in that order.
+    """K10's GEMM in PyTorch, f32 out: the int8 products summed exactly
+    (both operands widened to float64, exact for every |sum| < 2^53;
+    neither device has an integer ``matmul``), the sum rounded to f32, then
+    times the row's scale and the column's, in that order.
     xq (M, K), sx (M,) -> (M, N)."""
     acc = torch.matmul(xq.double(), w8.double()).float()
     return (acc * sx.reshape(-1, 1).float()) * sw.reshape(1, -1).float()
+
+
+def w8a8_token_matmul_plain(x2: torch.Tensor, lin: QuantLinear) -> torch.Tensor:
+    """K10's whole arithmetic in PyTorch, f32 out: the per-token quantizer
+    of ``x2`` (M, K) in f32, then :func:`w8a8_matmul_plain` -> (M, N)."""
+    xq, sx = dynamic_quantize_token_int8(x2.float())
+    return w8a8_matmul_plain(xq, sx.reshape(-1), lin.weight, lin.scale)
 
 
 @functools.lru_cache(maxsize=None)
@@ -231,14 +291,57 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def w8a8_splits(m: int, k: int, n: int, sms: int) -> int:
-    """How many blocks of one output tile split K: enough for two blocks
-    an SM where the output tiles alone are fewer, each with at least two
-    K steps."""
-    bm, bn, bk = W8A8_TILE
-    tiles = -(-m // bm) * -(-n // bn)
-    steps = -(-k // bk)
-    return max(1, min(steps // 2, -(-2 * sms // tiles)))
+#: K10's output types (the C entry's out_type); others are made in f32
+_W8A8_OUT = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
+
+
+def _w8a8_launch(wrapper: Callable, lin: QuantLinear, out_dtype: torch.dtype,
+                 x2: Optional[torch.Tensor] = None, xq: Optional[torch.Tensor] = None,
+                 sx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One K10 call on the card: x2 (M, K) in ``out_dtype``, quantized by
+    the kernel, or the codes xq (M, K) with their scales sx (M,)."""
+    a = x2 if x2 is not None else xq
+    m, k = a.shape
+    n = lin.out_features
+    sw = lin.scale.reshape(-1)
+    _check_cuda(wrapper.__name__, a, lin.weight, sw, *(() if sx is None else (sx,)))
+    plan = w8a8_plan(m, k, n, _sm_count(a.device.index or 0), a.element_size())
+    if x2 is not None and not plan.decode:  # the quantizer pass's codes and scales
+        xq = torch.empty((m, k), dtype=torch.int8, device=a.device)
+        sx = torch.empty((m,), dtype=torch.float32, device=a.device)
+    direct = out_dtype in _W8A8_OUT
+    out = torch.empty((m, n), dtype=out_dtype if direct else torch.float32, device=a.device)
+
+    def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+        return None if t is None else t.data_ptr()
+    err = _build.load().qtt_w8a8_matmul(
+        ptr(xq), lin.weight.data_ptr(), ptr(sx), sw.data_ptr(), out.data_ptr(), ptr(x2), m, k, n,
+        int(sw.dtype == torch.float32), _W8A8_OUT[out.dtype], plan.split, _stream(a.device))
+    _build.check(err, wrapper.__name__)
+    wrapper.launches += 1
+    return out if direct else out.to(out_dtype)
+
+
+@_count
+def w8a8_token_matmul(x: torch.Tensor, lin: QuantLinear) -> torch.Tensor:
+    """A W8A8 linear: x (..., K) in bf16, f16 or f32, quantized per token to
+    int8, times a symmetric per-channel int8 linear -> (..., N) in x's
+    dtype, in one launch (m <= W8A8_DECODE_ROWS) or two (the quantizer
+    pass, then the GEMM). The JAX package's ``w8a8_token_matmul``, bit for
+    bit."""
+    reason = _w8a8_reason(lin)
+    if reason:
+        raise KernelUnsupported(reason)
+    if x.dtype not in _W8A8_OUT:
+        raise KernelUnsupported(f"w8a8 kernel takes bf16, f16 or f32 activations, not {x.dtype}")
+    k, n = lin.in_features, lin.out_features
+    lead = tuple(x.shape[:-1])
+    x2 = aligned16(x.reshape(-1, k).contiguous())
+    if x2.device.type == "cpu":
+        return w8a8_token_matmul_plain(x2, lin).to(x.dtype).reshape(*lead, n)
+    if not x2.is_cuda:
+        raise ValueError(f"w8a8_token_matmul: no kernel for device {x2.device}")
+    return _w8a8_launch(w8a8_token_matmul, lin, x.dtype, x2=x2).reshape(*lead, n)
 
 
 @_count
@@ -246,8 +349,8 @@ def w8a8_matmul(xq: torch.Tensor, sx: torch.Tensor, lin: QuantLinear,
                 out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """int8 activations ``xq`` (..., K) with their per-row f32 scales ``sx``
     (..., 1) times a symmetric per-channel int8 linear -> (..., N) in
-    ``out_dtype``: the JAX package's ``w8a8_token_matmul`` after its
-    quantizer."""
+    ``out_dtype``: K10's GEMM alone (:func:`w8a8_token_matmul` after its
+    quantizer)."""
     reason = _w8a8_reason(lin)
     if reason:
         raise KernelUnsupported(reason)
@@ -255,27 +358,13 @@ def w8a8_matmul(xq: torch.Tensor, sx: torch.Tensor, lin: QuantLinear,
     lead = tuple(xq.shape[:-1])
     x2 = aligned16(xq.reshape(-1, k).contiguous())
     s2 = sx.reshape(-1).float().contiguous()
-    m = x2.shape[0]
     if x2.device.type == "cpu":
         return w8a8_matmul_plain(x2, s2, lin.weight, lin.scale).to(out_dtype).reshape(*lead, n)
     if not x2.is_cuda:
         raise ValueError(f"w8a8_matmul: no kernel for device {x2.device}")
-    sw = lin.scale.reshape(-1)
-    _check_cuda("w8a8_matmul", x2, s2, lin.weight, sw)
-    if x2.dtype != torch.int8 or s2.shape[0] != m:
+    if x2.dtype != torch.int8 or s2.shape[0] != x2.shape[0]:
         raise ValueError("w8a8_matmul: int8 activations with one scale a row")
-    lib = _build.load()
-    direct = out_dtype in (torch.bfloat16, torch.float32)
-    out = torch.empty((m, n), dtype=out_dtype if direct else torch.float32, device=x2.device)
-    splits = w8a8_splits(m, k, n, _sm_count(x2.device.index or 0))
-    ws = torch.zeros((m, n), dtype=torch.int32, device=x2.device) if splits > 1 else None
-    err = lib.qtt_w8a8_matmul(x2.data_ptr(), lin.weight.data_ptr(), s2.data_ptr(), sw.data_ptr(),
-                              out.data_ptr(), None if ws is None else ws.data_ptr(), m, k, n,
-                              int(sw.dtype == torch.float32), int(out.dtype == torch.float32),
-                              splits, _stream(x2.device))
-    _build.check(err, "w8a8_matmul")
-    w8a8_matmul.launches += 1
-    return out.to(out_dtype).reshape(*lead, n)
+    return _w8a8_launch(w8a8_matmul, lin, out_dtype, xq=x2, sx=s2).reshape(*lead, n)
 
 
 # ---------------------------------------------------------------------------
@@ -865,7 +954,7 @@ def gptq_block(w_blk: torch.Tensor, u_blk: torch.Tensor, scale: torch.Tensor,
 
 ALL_KERNELS = (w4_matmul, w8_matmul, decode_attention, nvfp4_matmul, nvfp4_i8_matmul,
                moe_slot_ffn, moe_slot_gu_ffn, flash_attention, fp8_matmul,
-               mla_decode_attention, w8a8_matmul, gptq_block)
+               mla_decode_attention, w8a8_token_matmul, w8a8_matmul, gptq_block)
 
 
 def reset_launch_counts() -> None:

@@ -1172,6 +1172,121 @@ def test_w8a8_token_matmul_on_the_card_equals_the_cpu(gen):
                            td.w8a8_token_matmul(x.cpu(), cpu_lin))
 
 
+#: K10 with its quantizer inside (kernels.w8a8_token_matmul): path I's
+#: served projections and Qwen3-4B's seven at decode (one launch), the row
+#: prefill, the calibration propagate and prefill (the quantizer pass, then
+#: the GEMM), the batcher's 17-64 rows, and the K and N tails
+W8A8_SERVED = ((2560, 6144), (4096, 2560), (2560, 19456), (9728, 2560))
+W8A8_FUSED_SHAPES = ([(m, k, n) for m in (1, 8, 128, 512, 1024)
+                      for k, n in W8A8_SERVED + ((2560, 4096), (2560, 1024), (2560, 9728))]
+                     + [(3, 9728, 2560), (3, 2592, 2608), (5, 200, 300), (17, 1000, 136),
+                        (40, 4096, 2560), (64, 9728, 2560), (65, 200, 300), (1, 16, 16)])
+
+
+def _token_plain(x, lin):
+    k = x.shape[-1]
+    return K.w8a8_token_matmul_plain(x.reshape(-1, k), lin).to(x.dtype).reshape(
+        *x.shape[:-1], lin.out_features)
+
+
+def _same_nan(got, ref):
+    """Equal bit for bit but that NaN equals NaN (a NaN's bits are the
+    card's own on both sides only after one rounding)."""
+    torch.cuda.synchronize()
+    assert torch.equal(got.isnan(), ref.isnan())
+    assert torch.equal(got.nan_to_num(), ref.nan_to_num())
+
+
+@pytest.mark.parametrize("m,k,n", W8A8_FUSED_SHAPES)
+def test_w8a8_token_kernel_matches_plain_bit_for_bit(gen, m, k, n):
+    lin = _w8a8(gen, k, n)
+    x = (torch.randn((m, k), device="cuda", generator=gen) * 2).bfloat16()
+    before = K.w8a8_token_matmul.launches
+    got = K.w8a8_token_matmul(x, lin)
+    assert K.w8a8_token_matmul.launches == before + 1
+    ref = _token_plain(x, lin)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref), (got.float() - ref.float()).abs().max().item()
+    assert torch.equal(K.w8a8_token_matmul(x, lin), got)
+
+
+@pytest.mark.parametrize("xdt", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("sdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [8, 40, 512])
+def test_w8a8_token_kernel_types(gen, xdt, sdt, m):
+    """Each activation (and output) type with each scale type, through the
+    decode body (8, 40 rows) and the prefill one (512)."""
+    lin = _w8a8(gen, 2560, 1024, sdt)
+    x = (torch.randn((m, 2560), device="cuda", generator=gen) * 2).to(xdt)
+    got = K.w8a8_token_matmul(x, lin)
+    assert got.dtype == xdt
+    _same_nan(got, _token_plain(x, lin))
+
+
+#: 0.5 - 2^-25: its f32 |q| + 0.5 rounds up to 1.0 (roundf gives 0)
+W8A8_TIE = 0.5 - 2.0 ** -25
+
+
+def _w8a8_edge_rows(gen, m, k):
+    """Random rows with, first, rows that reach the quantizer's traps: all
+    zero (the 1e-12 floor), the tie (absmax 127.5: scale 1.0, q = x), +inf,
+    -inf, NaN, and all at +-127.5 (the clamp)."""
+    x = torch.randn((m, k), device="cuda", generator=gen) * 3
+    x[1] = 0.0
+    x[2] = W8A8_TIE
+    x[2, 0], x[2, 1], x[2, 2] = 127.5, -W8A8_TIE, 2.5
+    x[3, 5] = float("inf")
+    x[4, 7] = float("-inf")
+    x[5, 3] = float("nan")
+    x[6] = torch.where(torch.arange(k, device="cuda") % 2 == 1, 127.5, -127.5)
+    return x
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 2560, 6144), (16, 200, 300), (64, 9728, 2560),
+                                   (128, 2560, 1024), (8, 2560, 19456)])
+def test_w8a8_token_kernel_edge_rows(gen, m, k, n):
+    """The NaN, inf, zero, tie and clamp rows against the card's plain
+    composition (f32, where the tie row's values are exact): an inf or NaN
+    row all NaN, the others equal."""
+    lin = _w8a8(gen, k, n)
+    x = _w8a8_edge_rows(gen, m, k)
+    got = K.w8a8_token_matmul(x, lin)
+    _same_nan(got, _token_plain(x, lin))
+    assert bool(got[3:6].isnan().all()) and not bool(got[[0, 1, 2, 6, 7]].isnan().any())
+    assert bool((got[1] == 0).all())
+    xq, _ = K.dynamic_quantize_token_int8(x[2:3])
+    assert int(xq[0, 3]) == 1 and int(xq[0, 1]) == -1  # the tie rounds away from 0
+
+
+def test_w8a8_token_kernel_is_one_launch_and_takes_an_offset_view(gen):
+    """A decode call is one kernel launch (profiled), a prefill call two;
+    an x at an unaligned base is copied to an aligned one (the same bits);
+    the C entry refuses an unaligned x before it launches."""
+    from quantizers_tpu_torch.ops import _build
+
+    lin = _w8a8(gen, 2560, 4096)
+    for m, launches in ((8, 1), (1024, 2)):
+        x = (torch.randn((m, 2560), device="cuda", generator=gen) * 2).bfloat16()
+        K.w8a8_token_matmul(x, lin)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            K.w8a8_token_matmul(x, lin)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                   and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
+        assert len(kernels) == launches, [e.name for e in kernels]
+    x = (torch.randn((8, 2560), device="cuda", generator=gen) * 2).bfloat16()
+    view = _offset_view(x)
+    before = K.w8a8_token_matmul.launches
+    assert torch.equal(K.w8a8_token_matmul(view, lin), K.w8a8_token_matmul(x, lin))
+    assert K.w8a8_token_matmul.launches == before + 2
+    out = torch.empty((8, 4096), dtype=torch.bfloat16, device="cuda")
+    err = _build.load().qtt_w8a8_matmul(None, lin.weight.data_ptr(), None, lin.scale.data_ptr(),
+                                        out.data_ptr(), view.data_ptr(), 8, 2560, 4096, 0, 0, 4,
+                                        torch.cuda.current_stream().cuda_stream)
+    assert err != 0 and "misaligned" in _build.load().qtt_error_string(err).decode()
+
+
 @pytest.mark.parametrize("name", ["dynamic_quantize_token_fp8", "dynamic_quantize_group_fp8",
                                   "dynamic_quantize_token_int8"])
 def test_dynamic_quantizers_on_the_card_equal_the_cpu(gen, name):

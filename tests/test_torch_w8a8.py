@@ -248,17 +248,134 @@ def test_w8a8_matmul_wrapper_flattens_and_copies():
     assert K.w8a8_matmul.launches == before
 
 
+#: K10's plans: decode at Qwen3-4B's served shapes (m 8: q|k|v, o, gate|up,
+#: down), one row, the batcher's 17-64 rows; prefill where a block's share
+#: of x outgrows the decode body (64 rows at K 9728 and past), at the row
+#: prefill, the calibration propagate and prefill; a short K; f32 x; int8
+#: codes; a smaller card
 @pytest.mark.parametrize("m,k,n,sms,want", [
-    (8, 2560, 4096, 132, 9),       # q_proj at decode: 32 tiles, 40 K steps
-    (8, 9728, 2560, 132, 14),      # down_proj at decode: 20 tiles
-    (1024, 2560, 9728, 132, 1),    # gate at prefill: 1216 tiles
-    (512, 2560, 1024, 132, 5),     # k_proj in the calibration propagate: 64 tiles
-    (3, 100, 300, 132, 1),         # 2 K steps: one block a tile
+    (8, 2560, 6144, 132, (True, 16, 4)),      # q|k|v: 48 column tiles
+    (8, 4096, 2560, 132, (True, 16, 8)),      # o_proj: 20 tiles, 64 K steps
+    (8, 2560, 19456, 132, (True, 16, 1)),     # gate|up: 152 tiles fill the SMs
+    (8, 9728, 2560, 132, (True, 16, 8)),      # down_proj: 152 K steps
+    (1, 2560, 4096, 132, (True, 16, 8)),      # one row, q_proj: 32 tiles
+    (17, 2560, 1024, 132, (True, 32, 8)),     # 8 tiles
+    (64, 9728, 2560, 132, (False, 128, 8)),    # 64 rows x 1216 of K: 152 KB of x a block
+    (40, 4096, 2560, 132, (True, 64, 8)),
+    (16, 50000, 2560, 132, (False, 128, 8)),   # a long K
+    (65, 2560, 1024, 132, (False, 128, 4)),   # past the decode body's rows: 8 wgmma tiles
+    (128, 2560, 6144, 132, (False, 128, 4)),  # the row prefill: 48 wgmma tiles
+    (512, 2560, 1024, 132, (False, 128, 4)),  # k_proj in the calibration propagate
+    (129, 520, 264, 132, (False, 64, 2)),     # N % 16 != 0: the mma.sync body, 9 tiles
+    (1024, 2560, 9728, 132, (False, 128, 1)), # gate at prefill: 608 wgmma tiles
+    (3, 100, 300, 132, (True, 16, 1)),        # 2 K steps: one block a tile
+    (8, 2560, 6144, 66, (True, 16, 2)),       # a card of half the SMs
 ])
 def test_w8a8_splits(m, k, n, sms, want):
-    assert K.w8a8_splits(m, k, n, sms) == want
+    plan = K.w8a8_plan(m, k, n, sms)
+    assert tuple(plan) == want
+    steps = -(-k // K.W8A8_BK)
+    assert 1 <= plan.split <= min(steps, K.W8A8_MAX_SPLIT)
+    if plan.decode:  # a block's share of x (bf16) fits the decode body
+        assert m <= K.W8A8_DECODE_ROWS and K._x_share(m, steps, plan.split, 2) <= K.W8A8_X_SHARE
 
 
+@pytest.mark.parametrize("m,k,elem,split", [
+    (16, 9728, 2, 1),   # 16 rows: 304 KB of bf16 x at split 1; 152 at 2, 76 at 4
+    (16, 9728, 4, 2),   # f32 x: twice the bytes
+    (64, 4096, 1, 1),   # int8 codes: a quarter of f32's
+    (64, 4096, 4, 8),   # 64 rows of f32 at K 4096: 128 KB a block even at 8
+])
+def test_w8a8_plan_x_share(m, k, elem, split):
+    """The decode body's share of x: 128-byte boxes of 64 columns a K step,
+    the least split that holds it; past split 8 the prefill body."""
+    steps = -(-k // K.W8A8_BK)
+    fits = [s for s in range(1, 9) if K._x_share(m, steps, s, elem) <= K.W8A8_X_SHARE]
+    plan = K.w8a8_plan(m, k, 1024, 132, elem)
+    assert plan.decode == bool(fits)
+    if fits:
+        assert min(fits) <= plan.split and plan.split >= split
+    assert K._x_share(3, 4, 1, 2) == 4 * 384  # 3 rows x 128 bytes a box, 128-aligned
+
+
+# ---------------------------------------------------------------------------
+# K10 with its quantizer: kernels.w8a8_token_matmul and its plain version
+# ---------------------------------------------------------------------------
+
+#: 0.5 - 2^-25, whose f32 |q| + 0.5 rounds up to 1.0 (roundf would give 0)
+TIE = np.float32(0.5) - np.float32(2.0 ** -25)
+
+
+def _edge_rows(k, seed):
+    """Rows that reach the quantizer's traps, K wide: random, all zero (the
+    1e-12 floor), the tie (absmax 127.5 makes the scale 1.0, so q = x),
+    +-inf, NaN, and a row whose codes all sit at +-127.5 (the clamp)."""
+    x = _rand((8, k), seed, 3.0)
+    x[1] = 0.0
+    x[2, :] = TIE
+    x[2, 0], x[2, 1], x[2, 2] = 127.5, -TIE, 2.5
+    x[3, 5] = np.inf
+    x[4, 7] = -np.inf
+    x[5, 3] = np.nan
+    x[6] = np.where(np.arange(k) % 2, 127.5, -127.5)
+    return x
+
+
+def _same(got, want):
+    """Equal bit for bit but that NaN equals NaN."""
+    g, w = _np(got), _np(want)
+    np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+    np.testing.assert_array_equal(np.nan_to_num(g), np.nan_to_num(w))
+
+
+def _jax_x(x, dtype):
+    t = torch.from_numpy(x).to(dtype)
+    jdt = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16, torch.float16: jnp.float16}
+    return jnp.asarray(t.float().numpy()).astype(jdt[dtype]), t
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape", [(1, 200), (8, 200), (33, 200), (4, 7, 200), (8, 128)])
+def test_kernel_w8a8_token_matmul_matches_jax(dtype, shape):
+    """kernels.w8a8_token_matmul on the CPU (its plain version) against the
+    JAX package's w8a8_token_matmul, bit for bit; K 200 is not a multiple
+    of 64 (the kernel's K step)."""
+    k = shape[-1]
+    jlin, tlin = _w8a8_lin(k=k, n=96, seed=30)
+    x = _rand(shape, 31, 3.0)
+    x.reshape(-1, k)[0, :4] = [TIE, -TIE, 127.5 / 2, 0.0]
+    jx, tx = _jax_x(x, dtype)
+    before = K.w8a8_token_matmul.launches
+    got = K.w8a8_token_matmul(tx, tlin)
+    assert K.w8a8_token_matmul.launches == before  # the CPU launches nothing
+    want = jd.w8a8_token_matmul(jx, jlin)
+    assert got.dtype == dtype and tuple(got.shape) == want.shape
+    _same(got, want)
+    plain = K.w8a8_token_matmul_plain(tx.reshape(-1, k), tlin).to(dtype)
+    assert torch.equal(plain.reshape(got.shape), got)
+    assert torch.equal(td.w8a8_token_matmul(tx, tlin), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("k", [200, 256])
+def test_kernel_w8a8_token_matmul_edge_rows_match_jax(dtype, k):
+    """The zero, tie, clamp, +-inf and NaN rows: the same codes, scales and
+    outputs as the JAX package's (an inf or NaN row all NaN)."""
+    jlin, tlin = _w8a8_lin(k=k, n=64, seed=32)
+    x = _edge_rows(k, 33)
+    jx, tx = _jax_x(x, dtype)
+    jq, jsc = jn.dynamic_quantize_token_int8(jx.astype(jnp.float32))
+    tq, tsc = tn.dynamic_quantize_token_int8(tx.float())
+    np.testing.assert_array_equal(_np(tq), _np(jq))
+    _same(tsc, jsc)
+    if dtype == torch.float32:
+        assert int(tq[2, 3]) == 1 and int(tq[2, 1]) == -1  # the tie rounds away from 0
+        assert int(tq[2, 0]) == 127 and int(tq[6, 0]) == -128 and int(tq[6, 1]) == 127
+    got = K.w8a8_token_matmul(tx, tlin)
+    _same(got, jd.w8a8_token_matmul(jx, jlin))
+    g = got.float()
+    assert bool(g[3:6].isnan().all()) and not bool(g[[0, 1, 2, 6, 7]].isnan().any())
+    assert bool((g[1] == 0).all())
 # ---------------------------------------------------------------------------
 # the W8A8 recipe through the engine and the CLIs
 # ---------------------------------------------------------------------------
