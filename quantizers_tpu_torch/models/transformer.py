@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from .._device import DeviceLike, resolve_device
+from ..ops._launch import records_grad
 from ..ops.dispatch import matmul_f32acc
 from ..ops.linear import QuantLinear, concat_linears, dense_linear
 from .config import ModelSpec
@@ -240,9 +241,11 @@ def attention(layer: Dict[str, Any], spec: ModelSpec, x: torch.Tensor,
     if cache is None and T > 1:
         # the no-cache forward (perplexity, calibration): blockwise flash
         # attention keeps memory linear in T, where the JAX package's tiling
-        # takes the shape; the einsum below for the rest
+        # takes the shape; the einsum below for the rest, and wherever
+        # autograd records (fit_lm): the kernel has no backward, nor has the
+        # JAX package's, whose fit_lm runs only where the einsum does
         qh = q.transpose(1, 2)
-        if flash.flash_reason(qh, k_att, v_att) is None:
+        if not records_grad(qh, k_att, v_att) and flash.flash_reason(qh, k_att, v_att) is None:
             ctx = flash.flash_attention(qh, k_att, v_att, sm_scale).transpose(1, 2)
             ctx = ctx.reshape(B, T, H * hd)
             if capture is not None:
@@ -316,7 +319,7 @@ def mla_attention(layer: Dict[str, Any], spec: ModelSpec, x: torch.Tensor,
             qp = F.pad(q_full.transpose(1, 2), (0, pad))
             kp = F.pad(k.transpose(1, 2), (0, pad))
             vp = v.transpose(1, 2)
-            if flash.flash_reason(qp, kp, vp) is None:
+            if not records_grad(qp, kp, vp) and flash.flash_reason(qp, kp, vp) is None:
                 ctx = flash.flash_attention(qp, kp, vp, sm_scale).transpose(1, 2)
                 ctx = ctx.reshape(B, T, H * dv)
                 if capture is not None:

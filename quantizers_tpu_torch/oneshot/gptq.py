@@ -10,10 +10,11 @@ recipe_gptq_w4a16_g128.yaml``). Design, as in the JAX package:
   an expert stack's down_proj gets ``(E, C, C)``), batch by batch, with no
   host synchronization.
 * The upper-triangular factor ``U`` of the damped ``H^-1`` (``H^-1 = U^T
-  U``) comes from one Cholesky and one triangular solve on the weights'
-  device (:func:`_ufactor`), with scipy's f64 LAPACK on the host as the
-  fallback (:func:`_ufactor_host`); each distinct Hessian is factored once
-  a layer (``ufactor_cache``).
+  U``) comes from one Cholesky and one triangular solve in f64 on the
+  weights' device, rounded to f32 (:func:`_ufactor`: the same U on the
+  card and the CPU; the JAX package's is f32), with scipy's f64 LAPACK on
+  the host as the fallback (:func:`_ufactor_host`); each distinct Hessian
+  is factored once a layer (``ufactor_cache``).
 * Group scales are solved up front from the weights (static groups), so
   the elimination is pure snap-and-propagate: blocks of 128 columns, each
   block's serial column loop in K11 (``csrc/gptq_block.cu``, launched on
@@ -148,29 +149,36 @@ def gptq_solve_plain(W: torch.Tensor, Hinv_u: torch.Tensor, scale: torch.Tensor,
 
 
 def _ufactor(H: torch.Tensor, dampening_frac: float) -> torch.Tensor:
-    """Damped H -> upper-triangular U with H^-1 = U^T U, in f32 on H's
-    device, with no host synchronization.
+    """Damped H -> upper-triangular U with H^-1 = U^T U, computed in f64 on
+    H's device and rounded to f32, with no host synchronization.
+
+    In f64 so that the factor is the same on every device: the elimination
+    given one U lands on the same codes on the card and the CPU, but an f32
+    factor carries its library's roundings (an f32 cuSOLVER factor of a
+    Qwen3-4B Hessian lay 2.2x farther from the f64 one than f32 LAPACK's,
+    and twice as far from it as one f32 ulp of H moves it), and GPTQ
+    carries such a difference into codes several steps apart. The JAX
+    package factors in f32 (a TPU has no f64).
 
     The exchange-matrix identity (see :func:`_ufactor_host`): with B = JHJ
     and B = L_b L_b^T, U = J L_b^-1 J is upper and H^-1 = U^T U. One
     Cholesky and one triangular solve against the identity, whole (the
     JAX package solves it in column blocks under ``lax.scan`` to bound a
-    TPU's memory; at K 9728 a (K, K) f32 buffer is 378 MB). A matrix that
+    TPU's memory; at K 9728 a (K, K) f64 buffer is 757 MB). A matrix that
     is not positive definite gives the identity, as the JAX package's NaN
     test does. H is not modified: the host fallback needs it intact."""
     K_ = H.shape[0]
-    eye = torch.eye(K_, dtype=torch.float32, device=H.device)
-    damp = torch.mean(torch.diagonal(H)) * dampening_frac
-    B = H.flip(0, 1)
-    B.diagonal().add_(damp)
+    eye = torch.eye(K_, dtype=torch.float64, device=H.device)
+    B = H.flip(0, 1).double()
+    B.diagonal().add_(torch.mean(torch.diagonal(B)) * dampening_frac)
     Lb, info = torch.linalg.cholesky_ex(B)
     del B
     M = torch.linalg.solve_triangular(Lb, eye, upper=False)
-    del Lb
-    U = M.flip(0, 1)
+    del Lb, eye
+    U = M.flip(0, 1).float()
     del M
     bad = (info != 0) | torch.isnan(U).any()
-    return torch.where(bad, eye, U)
+    return torch.where(bad, torch.eye(K_, dtype=torch.float32, device=H.device), U)
 
 
 def _blas_threads():

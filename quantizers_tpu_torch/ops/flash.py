@@ -19,7 +19,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from ._launch import KernelUnsupported, _count, _stream
+from ._launch import KernelUnsupported, _count, _stream, refuse_grad
 
 _NEG_INF = -1e30
 #: (d, dv) pairs the CUDA kernel is instantiated for: the dense path, and
@@ -108,7 +108,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale:
     the kernel is not built for. On the card the inputs are read through
     their strides (the transformer passes ``transpose(1, 2)`` views), and the
     output is a (B, H, T, dv) view of a (B, T, H, dv) buffer, so that the
-    caller's ``transpose(1, 2).reshape(B, T, H * dv)`` copies nothing."""
+    caller's ``transpose(1, 2).reshape(B, T, H * dv)`` copies nothing.
+    Raises ``RuntimeError`` where autograd records through q, k or v (the
+    kernel has no backward), on every device."""
+    refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, sm_scale, causal)
     reason = flash_reason(q, k, v)

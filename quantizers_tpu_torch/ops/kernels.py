@@ -5,7 +5,10 @@ Each wrapper checks what its kernel takes and raises
 tensors it computes the kernel's plain PyTorch version; given CUDA tensors
 it launches the kernel (``csrc/*.cu``, built by :mod:`._build`) on the
 current stream and raises if the launch fails. It adds one to its
-``launches`` count where it launches, and nowhere else.
+``launches`` count where it launches, and nowhere else. The kernels have
+no backward: on every device, a wrapper raises ``RuntimeError`` where
+autograd records through one of its inputs (:func:`._launch.refuse_grad`),
+so that no launch cuts a graph silently.
 
 * :func:`w4_matmul` replaces ``quantizers_tpu/ops/kernels.py``
   ``_w4_matmul_2d`` and ``_w4i_matmul_2d`` (W4A16, group scales);
@@ -51,7 +54,7 @@ import torch.nn.functional as F
 
 from ..core.numerics import dynamic_quantize_token_int8
 from . import _build
-from ._launch import KernelUnsupported, _count, _stream, aligned16
+from ._launch import KernelUnsupported, _count, _stream, aligned16, refuse_grad
 from .flash import flash_attention
 from .linear import QuantLinear, _unpack_fp4, _unpack_nibbles
 
@@ -119,6 +122,7 @@ def w4_matmul_plain(x2: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
 @_count
 def w4_matmul(x: torch.Tensor, lin: QuantLinear) -> torch.Tensor:
     """x (..., K) @ W^T for a symmetric packed w4 linear -> (..., N)."""
+    refuse_grad("w4_matmul", x, lin.weight, lin.scale)
     reason = _w4_reason(lin)
     if reason:
         raise KernelUnsupported(reason)
@@ -167,6 +171,7 @@ def w8_matmul_plain(x2: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor,
 @_count
 def w8_matmul(x: torch.Tensor, lin: QuantLinear) -> torch.Tensor:
     """x (..., K) @ W^T for a symmetric int8 linear -> (..., N)."""
+    refuse_grad("w8_matmul", x, lin.weight, lin.scale)
     reason = _w8_reason(lin)
     if reason:
         raise KernelUnsupported(reason)
@@ -329,6 +334,7 @@ def w8a8_token_matmul(x: torch.Tensor, lin: QuantLinear) -> torch.Tensor:
     dtype, in one launch (m <= W8A8_DECODE_ROWS) or two (the quantizer
     pass, then the GEMM). The JAX package's ``w8a8_token_matmul``, bit for
     bit."""
+    refuse_grad("w8a8_token_matmul", x, lin.weight, lin.scale)
     reason = _w8a8_reason(lin)
     if reason:
         raise KernelUnsupported(reason)
@@ -351,6 +357,7 @@ def w8a8_matmul(xq: torch.Tensor, sx: torch.Tensor, lin: QuantLinear,
     (..., 1) times a symmetric per-channel int8 linear -> (..., N) in
     ``out_dtype``: K10's GEMM alone (:func:`w8a8_token_matmul` after its
     quantizer)."""
+    refuse_grad("w8a8_matmul", xq, sx, lin.weight, lin.scale)
     reason = _w8a8_reason(lin)
     if reason:
         raise KernelUnsupported(reason)
@@ -402,6 +409,7 @@ def nvfp4_matmul_plain(x2: torch.Tensor, weight: torch.Tensor, scale: torch.Tens
 
 
 def _nvfp4_call(x: torch.Tensor, lin: QuantLinear, entry: str, wrapper: Callable) -> torch.Tensor:
+    refuse_grad(wrapper.__name__, x, lin.weight, lin.scale)
     reason = _nvfp4_reason(lin)
     if reason:
         raise KernelUnsupported(reason)
@@ -473,6 +481,7 @@ def fp8_matmul_plain(x2: torch.Tensor, w8: torch.Tensor, scale: torch.Tensor) ->
 @_count
 def fp8_matmul(x: torch.Tensor, lin: QuantLinear) -> torch.Tensor:
     """x (..., K) @ W^T for an FP8 block-scaled linear -> (..., N)."""
+    refuse_grad("fp8_matmul", x, lin.weight, lin.scale)
     reason = _fp8_reason(lin)
     if reason:
         raise KernelUnsupported(reason)
@@ -559,6 +568,7 @@ def decode_attention(q: torch.Tensor, new_k: torch.Tensor, new_v: torch.Tensor,
     (B, KV, S, hd), updated in place at row ``min(lengths[b], S-1)``;
     lengths (B,) int32. Returns ctx (B, KV, rep, hd). The caller advances
     ``lengths``."""
+    refuse_grad("decode_attention", q, new_k, new_v, cache_k, cache_v)
     reason = decode_reason(q, cache_k, cache_v)
     if reason:
         raise KernelUnsupported(reason)
@@ -646,6 +656,7 @@ def mla_decode_attention(q_abs: torch.Tensor, q_pe: torch.Tensor, new_c: torch.T
     (B, rope_pad); cache_c (B, 1, S, r) and cache_p (B, 1, S, rope_pad),
     updated in place at row ``min(lengths[b], S-1)``; lengths (B,) int32.
     Returns ctx_lat (B, H, r). The caller advances ``lengths``."""
+    refuse_grad("mla_decode_attention", q_abs, q_pe, new_c, new_p, cache_c, cache_p)
     reason = mla_decode_reason(q_abs, q_pe, cache_c, cache_p)
     if reason:
         raise KernelUnsupported(reason)
@@ -730,6 +741,8 @@ def moe_slot_ffn(x: torch.Tensor, idx: torch.Tensor, gate_el, up_el, down_el) ->
     """Gated FFN of ``S`` expert slots: x (S, D) (a token row per slot),
     idx (S,) expert ids; gate/up (E, D, F) and down (E, F, D) stacks.
     Returns (S, D) f32, not yet combined."""
+    refuse_grad("moe_slot_ffn", x, *(t for el in (gate_el, up_el, down_el)
+                                     for t in (el.weight, el.scale)))
     reason = moe_slot_ffn_reason(x, gate_el, up_el, down_el)
     if reason:
         raise KernelUnsupported(reason)
@@ -800,6 +813,7 @@ def moe_slot_gu_ffn(x: torch.Tensor, idx: torch.Tensor, gu_el, down_el) -> torch
     """Gated FFN of ``S`` expert slots over the fused w8pc layout: gate|up
     int8 (E, D, 2F) with f32 scales (E, 1, 2F), down int8 (E, F, D) with
     (E, 1, D). Returns (S, D) f32, not yet combined."""
+    refuse_grad("moe_slot_gu_ffn", x, gu_el.weight, gu_el.scale, down_el.weight, down_el.scale)
     reason = moe_slot_gu_reason(x, gu_el, down_el)
     if reason:
         raise KernelUnsupported(reason)
@@ -898,6 +912,7 @@ def _gptq_launch(w_blk: torch.Tensor, u_blk: torch.Tensor, scale: torch.Tensor,
     whose width is not a multiple of 4 is padded with columns that come
     after all of its own (so they change none of its results), W and U rows
     that are not 16-byte aligned are copied."""
+    refuse_grad("gptq_block", w_blk, u_blk)
     n, bs = w_blk.shape
     pad = -bs % 4
     if pad:
@@ -937,6 +952,7 @@ def gptq_block(w_blk: torch.Tensor, u_blk: torch.Tensor, scale: torch.Tensor,
     (their rows strided); a block narrower than GPTQ_MAX_BLOCK is taken as
     it is, one whose width is not a multiple of 4 is padded with columns
     that come after all of its own (so they change none of its results)."""
+    refuse_grad("gptq_block", w_blk, u_blk, scale)
     n, bs = w_blk.shape
     if u_blk.shape != (bs, bs) or col_group.shape != (bs,) or bs > GPTQ_MAX_BLOCK:
         raise KernelUnsupported(f"gptq block takes (N, bs <= {GPTQ_MAX_BLOCK}) W with a "

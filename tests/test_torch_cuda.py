@@ -1498,17 +1498,20 @@ def test_gptq_block_edges_match_plain_bit_for_bit(gen, case):
 
 @pytest.mark.parametrize("k", [512, 2560])
 def test_gptq_device_factor_matches_the_host_factor(gen, k):
-    """``_ufactor`` (f32 cuSOLVER Cholesky and triangular solve on the card)
-    against ``_ufactor_host`` (f64 LAPACK, rounded to f32): within 1e-4 of
-    the largest |U| (f32 roundoff grows with K and the damped Hessian's
-    condition number), upper-triangular."""
+    """``_ufactor`` (cuSOLVER's Cholesky and triangular solve in f64 on the
+    card, rounded to f32) against ``_ufactor_host`` (f64 LAPACK, rounded to
+    f32): at most 0.1% of the entries apart and none by more than one f32
+    ulp of the largest |U| (the two f64 results round alike nearly
+    everywhere; an f32 factor differs in most entries), upper-triangular."""
     from quantizers_tpu_torch.oneshot import gptq as TG
 
     _, H = _gptq_problem(gen, 8, k)
     got = TG._ufactor(H, 0.01).cpu()
     want = torch.from_numpy(TG._ufactor_host(H.cpu().numpy(), 0.01))
     assert torch.equal(got, torch.triu(got))
-    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    assert (got != want).float().mean().item() <= 1e-3
+    ulp = np.spacing(np.float32(want.abs().max().item()))
+    assert (got - want).abs().max().item() <= ulp
 
 
 def test_gptq_failed_device_factor_falls_back_and_caches_nothing(gen, monkeypatch):
@@ -1580,3 +1583,48 @@ def test_autoround_on_the_card_never_loses_to_its_step_0(gen, lr):
     assert torch.equal(q, torch.round(q)) and -8 <= q.min().item() and q.max().item() <= 7
     qt = TA.autoround_quantize(W, X, args, iters=20, lr=lr)
     assert qt.values.is_cuda and qt.values.dtype == torch.int8
+
+
+def test_lm_loss_gradients_on_the_card_match_the_cpu(gen):
+    """One ``lm_loss`` backward at Qwen3-4B's widths (head dim 128, so that
+    a no-grad forward would take the flash kernel), 1 layer, vocab cut to
+    4,096: every leaf gets a finite, nonzero gradient on the card, no kernel
+    launches, and each leaf's gradient agrees with the CPU's within 2e-2 of
+    its largest |value| (both devices round the activations to bf16 at the
+    same points, with f32 sums in other orders)."""
+    from quantizers_tpu_torch.models import ModelSpec, init_params
+    from quantizers_tpu_torch.models import fit as TFIT
+    from quantizers_tpu_torch.models.transformer import tree_to
+
+    spec = ModelSpec(vocab_size=4096, hidden_size=2560, num_layers=1, num_heads=32,
+                     num_kv_heads=8, head_dim=128, intermediate_size=9728, qk_norm=True,
+                     tie_word_embeddings=True, model_type="qwen3")
+    params = init_params(spec, seed=0, device="cuda")
+    batch = torch.randint(2, 4096, (2, 65), generator=gen, device="cuda")
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        K.reset_launch_counts()
+        params32, leaves = TFIT.trainable(tree_to(params, torch.device(dev)))
+        TFIT.lm_loss(spec, params32, batch.to(dev)).backward()
+        assert sum(K.launch_counts().values()) == 0
+        grads[dev] = [leaf.grad for leaf in leaves]
+    # embed, final_norm; the layer's two norms, q/k/v/o, q_norm, k_norm, the MLP's three
+    assert len(grads["cuda"]) == len(grads["cpu"]) == 2 + 2 + 4 + 2 + 3
+    for got, ref in zip(grads["cuda"], grads["cpu"]):
+        assert got is not None and torch.isfinite(got).all() and got.abs().max() > 0
+        err = (got.cpu() - ref).abs().max().item()
+        assert err <= 2e-2 * ref.abs().max().item(), (tuple(ref.shape), err)
+
+
+def test_flash_attention_refuses_an_input_that_requires_grad_on_the_card(gen):
+    from quantizers_tpu_torch.ops.flash import flash_attention
+
+    q, k, v = (torch.randn((1, 8, 256, 128), generator=gen, device="cuda").bfloat16()
+               for _ in range(3))
+    before = flash_attention.launches
+    with pytest.raises(RuntimeError, match="flash_attention: the kernel has no backward"):
+        flash_attention(q.requires_grad_(True), k, v, 1 / math.sqrt(128))
+    assert flash_attention.launches == before
+    with torch.no_grad():
+        flash_attention(q, k, v, 1 / math.sqrt(128))
+    assert flash_attention.launches == before + 1

@@ -140,25 +140,30 @@ def test_checkpoint_entry_points_run_on_an_explicit_cpu(name, tiny_dir):
 @pytest.mark.parametrize("argv,slice_", [
     # ported in slice 5: writes a tiny MLA model that both packages load
     (lambda d: make_tiny_model.main([str(d / "mla"), "--mla", "--device", "cpu"]), None),
-    (lambda d: make_tiny_model.main([str(d / "fit"), "--fit-corpus", str(d / "config.json")]),
-     "training slice"),
+    # ported in the training slice: fits the model to a text first
+    (lambda d: make_tiny_model.main([str(d / "fit"), "--fit-corpus", str(d / "config.json"),
+                                     "--fit-steps", "5", "--fit-seq", "32", "--device", "cpu"]),
+     None),
     (lambda d: serve.main([str(d), "--prompt", "hi", "--mesh", "dp=1,tp=4", "--device", "cpu"]),
      "slice 8"),
 ], ids=["make_tiny_model --mla", "make_tiny_model --fit-corpus", "serve --mesh"])
-def test_cli_options_of_later_slices_raise(argv, slice_, tiny_dir):
+def test_cli_options_of_later_slices_raise(argv, slice_, tiny_dir, request):
     if slice_ is not None:
         with pytest.raises(NotImplementedError, match=slice_):
             argv(tiny_dir)
         return
     from quantizers_tpu.models.loader import load_hf_model as jax_load_hf_model
 
+    mla = "--mla" in request.node.callspec.id
+    out = tiny_dir / ("mla" if mla else "fit")
     assert argv(tiny_dir) == 0
-    spec, params = load_hf_model(tiny_dir / "mla", device="cpu")
-    jspec, jparams = jax_load_hf_model(tiny_dir / "mla")
-    assert spec.is_mla and spec == ModelSpec.tiny(mla=True, hidden_size=64, num_layers=2,
-                                                   vocab_size=512)
-    assert jspec.is_mla and jspec.kv_lora_rank == spec.kv_lora_rank
-    for name in ("q_a_proj", "kv_a_proj_with_mqa", "kv_b_proj", "o_proj"):
+    spec, params = load_hf_model(out, device="cpu")
+    jspec, jparams = jax_load_hf_model(out)
+    assert spec == ModelSpec.tiny(mla=mla, hidden_size=64, num_layers=2, vocab_size=512)
+    assert jspec.is_mla == mla and jspec.kv_lora_rank == spec.kv_lora_rank
+    names = ("q_a_proj", "kv_a_proj_with_mqa", "kv_b_proj", "o_proj") if mla else (
+        "q_proj", "k_proj", "v_proj", "o_proj")
+    for name in names:
         np.testing.assert_array_equal(
             params["layers"][1][name].weight.float().numpy(),
             np.asarray(jparams["layers"][1][name].weight, np.float32))
