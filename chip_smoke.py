@@ -133,8 +133,27 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
 29. card against CPU for the fit: one set of tiny weights, the
     ``lm_loss`` gradients of one batch and 100 ``fit_lm`` steps' logged
     losses;
-15. after phase 29: one JSON line of per-kernel numbers, then the card's
-    nvidia-smi line, then the final ``{"ok": true, ...}`` line.
+30. (inside phases 9-11's directory) ``cli/serve.main --mesh tp=2`` on path
+    D's 36-layer checkpoint as two ranks on the card (this script with
+    ``--serve-rank``, gloo, both on cuda:0), phase 10's prompts and
+    settings: rank 0 prints phase 10's rids, each rank launches K1 on all
+    four projections (the row-parallel down_proj at local K 4864), K2 and
+    K3 only, two all-reduces a layer a forward; the tokens against phase
+    10's (equal up to a near-tie at the first divergence);
+31. a pair of rank workers (``--mesh-rank``) against the single-process
+    card run on the same seeded weights: (a) Qwen3-4B at full width, 2
+    layers, tp 2, an (8, 128) teacher-forced prefill and 16 greedy steps;
+    (b) Qwen3-30B-A3B, 2 layers, tp 2, w8pc experts split over tp (K7 at E
+    64, K2 at KV 2 rep 8), the router's picks; (c) path E's FP8_BLOCK MLA
+    layer at tp 2 (K9 at the shards, K8 at H 8); (d) ``ring_attention`` at
+    cp 2, B 1, 32/8 heads, T 8192, against the flash kernel and the plain
+    einsum;
+32. NCCL at world size 1 in this process: ``initialize``, an all-reduce,
+    phase 31 (a)'s forward through the tp 1 mesh path, equal to the plain
+    path;
+15. after phase 32: one JSON line of per-kernel numbers (with each
+    kernel's launches under the mesh), then the card's nvidia-smi line,
+    then the final ``{"ok": true, ...}`` line.
 
 Longer per-shape numbers go to ``chiprun_out/chip_smoke_detail.json``.
 
@@ -423,19 +442,20 @@ W4_LAYER = {"qkv": (2560, 4096 + 2 * 1024), "o_proj": (4096, 2560), "gate_up": (
             "down": (9728, 2560)}
 
 
-def w4_layer(gen, m: int, timed: bool = True) -> dict:
-    """K1 at the four W4_LAYER shapes with ``m`` rows of x, each checked
-    against its plain version and, with ``timed``, timed (time_matmul);
-    logs the sum of the four device times."""
+def w4_layer(gen, m: int, timed: bool = True, shapes: dict = W4_LAYER) -> dict:
+    """K1 at the four W4_LAYER shapes (or ``shapes``) with ``m`` rows of x,
+    each checked against its plain version and, with ``timed``, timed
+    (time_matmul); logs the sum of the device times."""
     from quantizers_tpu_torch.ops import kernels as K
 
     plain4 = lambda x, lin: K.w4_matmul_plain(x, lin.weight, lin.scale, GROUP)  # noqa: E731
     rows = {}
-    for label, (k, n) in W4_LAYER.items():
+    for label, (k, n) in shapes.items():
         rows[label] = check_matmul("w4_matmul", K.w4_matmul, plain4, gen, k, n, m, GROUP, timed)
         log(f"[kernels] w4 {label} m={m}: {rows[label]}")
     if timed:
-        log(f"[kernels] w4 layer m={m}: dev_ms {sum(r['dev_ms'] for r in rows.values())}, "
+        what = "layer" if shapes is W4_LAYER else "+".join(shapes)
+        log(f"[kernels] w4 {what} m={m}: dev_ms {sum(r['dev_ms'] for r in rows.values())}, "
             f"library_dev_ms {sum(r['library_dev_ms'] for r in rows.values())}")
     return rows
 
@@ -445,7 +465,9 @@ def w4_layer(gen, m: int, timed: bool = True) -> dict:
 #: 1's Qwen3-4B and path A's Qwen3-30B-A3B mid-decode; "long" (slice 1's
 #: heads over a full 2048-slot cache) is for timing a redesign by hand
 DECODE_SHAPES = {"slice1": (8, 4, MAX_LEN, 255), "path_A": (4, 8, MAX_LEN, 255),
-                 "long": (8, 4, 2048, 2047)}
+                 "long": (8, 4, 2048, 2047),
+                 # a rank's heads at tp 2 (phases 30 and 31 (a), and 31 (b))
+                 "slice1_tp2": (4, 4, MAX_LEN, 255), "path_A_tp2": (2, 8, MAX_LEN, 255)}
 
 
 def check_decode_attention(gen, timed: bool, shape: str = "slice1"):
@@ -1022,16 +1044,17 @@ def slot_ids(gen, routing: str, S: int, E: int = 128) -> torch.Tensor:
     return ids.to(torch.int32)
 
 
-def check_slot(gen, payload: str, timed: bool, routing: str = "router") -> dict:
+def check_slot(gen, payload: str, timed: bool, routing: str = "router", E: int = 128) -> dict:
     """K6 (packed w4, packed E2M1, int8-doubled E2M1) or K7 (``w8pc``) at
-    the Qwen3-30B-A3B decode shape, its slots routed as ``routing`` says
+    the Qwen3-30B-A3B decode shape over ``E`` experts (64: a rank's share
+    at tp or ep 2), its slots routed as ``routing`` says
     (``SLOT_ROUTINGS``; the router: 8 tokens x top-8 = 64 slots). Timed:
     the device times of the kernel and of the yardstick, and at the router
     routing the launch-to-launch and plain times too."""
     from quantizers_tpu_torch.models.moe import _slot_dequant
     from quantizers_tpu_torch.ops import kernels as K
 
-    E, D, Fe = 128, 2048, 768
+    D, Fe = 2048, 768
     dev = gen.device
     if payload == "w8pc":
         name, wrapper, plain = "moe_slot_gu_ffn", K.moe_slot_gu_ffn, K.moe_slot_gu_ffn_plain
@@ -1042,7 +1065,7 @@ def check_slot(gen, payload: str, timed: bool, routing: str = "router") -> dict:
     idx = slot_ids(gen, routing, SLOT_ROUTINGS[routing], E)
     S = idx.numel()
     x = torch.randn((S, D), device=dev, generator=gen).bfloat16()
-    label = f"{payload} {routing}"
+    label = f"{payload} {routing}" + ("" if E == 128 else f" E={E}")
     got = wrapper(x, idx, *stacks)
     err, tol = row_check(name, got, plain(x, idx, *stacks), label)
     check(torch.equal(wrapper(x, idx, *stacks), got), f"{name} {label}: differs from run to run")
@@ -1912,6 +1935,21 @@ def eval_phase(gen, detail, tmp: Path):
     return spec, ckpt, text, counts
 
 
+def serve_prompts(text: Path) -> list:
+    """Phase 10's 8 prompts: runs of 3 to 31 words of the synthetic text."""
+    words = text.read_text().split()
+    return [" ".join(words[i * 7: i * 7 + 3 + 4 * i]) for i in range(8)]
+
+
+def serve_argv(ckpt: Path, text: Path) -> list:
+    """Phase 10's ``cli/serve`` arguments (phase 30 adds ``--mesh``)."""
+    argv = [str(ckpt), "--max-new-tokens", "32", "--max-batch", "8", "--max-len", "512",
+            "--head-bits", "8"]
+    for prompt in serve_prompts(text):
+        argv += ["--prompt", prompt]
+    return argv
+
+
 def serve_cli_phase(ckpt, text, detail):
     """``cli/serve.main`` on path D's checkpoint: 8 prompts through the
     continuous batcher with the int8 head. Row prefills and decode steps run
@@ -1920,14 +1958,11 @@ def serve_cli_phase(ckpt, text, detail):
     from quantizers_tpu_torch.cli import serve
     from quantizers_tpu_torch.ops import kernels as K
 
-    words = text.read_text().split()
-    argv = [str(ckpt), "--max-new-tokens", "32", "--max-batch", "8", "--max-len", "512",
-            "--head-bits", "8"]
-    for i in range(8):
-        argv += ["--prompt", " ".join(words[i * 7: i * 7 + 3 + 4 * i])]
+    argv = serve_argv(ckpt, text)
     K.reset_launch_counts()
     t0 = time.perf_counter()
-    rc, out, rec = run_cli(serve.main, argv, "quantizers_tpu_torch.serve")
+    with BatcherResults() as res:
+        rc, out, rec = run_cli(serve.main, argv, "quantizers_tpu_torch.serve")
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = K.launch_counts()
@@ -1940,7 +1975,8 @@ def serve_cli_phase(ckpt, text, detail):
           f"path D serve: K1, K2 and K3 must launch, and nothing else: {counts}")
     n_tok, gen_s = rec.args("generated")[0], rec.args("generated")[2]
     detail["path_D_serve"] = {"prompts": 8, "tokens": n_tok, "load_s": rec.args("loaded")[1],
-                              "generate_s": gen_s, "total_s": dt, "launches": counts}
+                              "generate_s": gen_s, "total_s": dt, "launches": counts,
+                              "token_ids": {str(k): v for k, v in res.results.items()}}
     log(f"[path D serve] {detail['path_D_serve']}")
 
 
@@ -2061,14 +2097,15 @@ def sdpa_backends(*args, **kw) -> list:
     return ok
 
 
-def check_mla_decode(gen, fill, timed: bool) -> dict:
-    """K8 at the path-E shape (B 8, H 16, r 512, rope 64 padded to 128,
-    S 512), every row at fill length ``fill`` (or row b at ``fill[b]``),
+def check_mla_decode(gen, fill, timed: bool, H: int = MLA_GEOMETRY["num_heads"]) -> dict:
+    """K8 at the path-E shape (B 8, H 16 (or ``H``: 8 is a rank's heads at
+    tp 2), r 512, rope 64 padded to 128, S 512), every row at fill length
+    ``fill`` (or row b at ``fill[b]``),
     stale rows past it NaN: each (row, head) held to 2e-2 of its own
     largest |value|, the written rows and the untouched ones exactly."""
     from quantizers_tpu_torch.ops import kernels as K
 
-    B, H, S = BATCH, MLA_GEOMETRY["num_heads"], MAX_LEN
+    B, S = BATCH, MAX_LEN
     r, dr, dp = MLA_GEOMETRY["kv_lora_rank"], MLA_GEOMETRY["qk_rope_head_dim"], 128
     dev = gen.device
     fills = [fill] * B if isinstance(fill, int) else list(fill)
@@ -2088,6 +2125,7 @@ def check_mla_decode(gen, fill, timed: bool) -> dict:
     ref = K.mla_decode_attention_plain(q_abs, q_pe, new_c, new_p, c2, p2, lengths, sm)
     torch.cuda.synchronize()
     label = f"L={fill}" if isinstance(fill, int) else "L=" + ",".join(map(str, fills))
+    label += "" if H == MLA_GEOMETRY["num_heads"] else f" H={H}"
     check(bool(torch.isfinite(got).all()), f"mla_decode_attention {label}: non-finite output")
     errs = (got.float() - ref.float()).abs().amax(dim=2)
     tols = RTOL["mla_decode_attention"] * ref.float().abs().amax(dim=2)
@@ -4940,6 +4978,614 @@ def training_phases(detail) -> None:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# slice 8, multi-device (phases 30-32): serve --mesh tp=2 through the CLI,
+# a pair of rank workers against the single-process card run, NCCL at world
+# size 1. The card holds one H100 and NCCL refuses two ranks on one device,
+# so the pairs are two processes on cuda:0 over gloo
+# ---------------------------------------------------------------------------
+
+#: phase 31: the prefill of part (a), its greedy steps, and the prefill and
+#: teacher-forced decode steps of parts (b) and (c)
+MESH_PREFILL, MESH_GREEDY, MESH_T, MESH_DECODE = 128, 16, 16, 8
+#: phase 31 (d): the ring's shape, B 1, 32/8 heads, head dim 128, causal
+RING_SHAPE = (1, 32, 8, 8192, 128)
+#: seconds a pair of ranks may take, spawn, load and build included
+MESH_DEADLINE_S = 420
+#: a greedy token of a sharded run may differ from the single-process one
+#: only where the latter's top two logits lie within this fraction of its
+#: largest |logit|: the sharded logits are held within that much (each
+#: rank's row shard rounds its partial sum to bf16 before the f32 sum)
+MESH_TIE_RTOL = LOGIT_RTOL
+
+
+#: K1 at phases 30 and 31 (a)'s shard shapes (K, N): Qwen3-4B's four calls
+#: of a layer at tp 2 (16 query and 4 KV heads, half of gate and of up,
+#: down_proj's local K 4864), and down_proj at tp 4 (K 2432)
+W4_LAYER_TP = {"qkv@tp2": (2560, 2048 + 2 * 512), "o_proj@tp2": (2048, 2560),
+               "gate_up@tp2": (2560, 9728), "down@tp2": (4864, 2560), "down@tp4": (2432, 2560)}
+#: K9 at phase 31 (c)'s shard shapes (K, N): path E's four fp8 calls of a
+#: layer at tp 2
+FP8_SHAPES_TP2 = {"q_proj": (2048, 1536), "o_proj": (1024, 2048), "gate_up": (2048, 8192),
+                  "down": (4096, 2048)}
+
+
+def mesh_kernels(gen, detail) -> dict:
+    """The kernels of phases 30-31 at the shapes a rank gives them, each
+    against its plain version: K1 at W4_LAYER_TP (m 8, timed, and the
+    prefill's m 1024), K2 at a rank's heads at tp 2 (KV 4 rep 4, KV 2
+    rep 8), K7 at E 64, K8 at H 8 and K9 at FP8_SHAPES_TP2 (m 8 and 128).
+    Every check must launch its kernel (a refused shape raises)."""
+    from quantizers_tpu_torch.ops import kernels as K
+
+    before = K.launch_counts()
+    rows = {"w4_matmul": {f"{label}@m{m}": r for m in (8, 1024)
+                          for label, r in w4_layer(gen, m, timed=m == 8,
+                                                   shapes=W4_LAYER_TP).items()},
+            "decode_attention": {s: check_decode_attention(gen, False, s)
+                                 for s in ("slice1_tp2", "path_A_tp2")},
+            "moe_slot_gu_ffn": {f"w8pc@{r}": check_slot(gen, "w8pc", False, r, E=64)
+                                for r in ("router", "one_expert", "all_distinct")},
+            "mla_decode_attention": {f"L{L}": check_mla_decode(gen, L, False, H=8)
+                                     for L in (192, MAX_LEN - 1)},
+            "fp8_matmul": {f"{label}@m{m}": check_fp8(gen, k, n, m, timed=False)
+                           for m in (8, 128) for label, (k, n) in FP8_SHAPES_TP2.items()}}
+    rows["mla_decode_attention"]["mixed"] = check_mla_decode(gen, MLA_MIXED, False, H=8)
+    launched = {name: n - before[name] for name, n in K.launch_counts().items()}
+    check(all(launched[name] > 0 for name in rows),
+          f"mesh shard shapes: a kernel did not launch: {launched}")
+    for name, by_shape in rows.items():
+        for label, r in by_shape.items():
+            log(f"[kernels] {name} shard {label}: {r}")
+    detail["kernels"]["mesh_shapes"] = rows
+    return rows
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def rank_env(rank: int, port: int) -> dict:
+    """Rank ``rank`` of a pair on cuda:0 over gloo (the launch recipe of
+    ``cli/serve.py`` for two ranks on one card)."""
+    env = dict(os.environ)
+    env.update({"QTPU_COORDINATOR": f"127.0.0.1:{port}", "QTPU_NUM_PROCESSES": "2",
+                "QTPU_PROCESS_ID": str(rank), "LOCAL_RANK": "0", "QTPU_DIST_BACKEND": "gloo",
+                "OMP_NUM_THREADS": str(max(1, (os.cpu_count() or 2) // 2))})
+    return env
+
+
+def run_pair(args: list, label: str) -> list:
+    """This script with ``args`` as ranks 0 and 1 of a pair; each rank's
+    stdout and stderr go to files (so that neither blocks on a full pipe
+    while the other waits in a collective), the last of its stderr to the
+    log. Both are killed past MESH_DEADLINE_S; a rank that fails fails the
+    phase. Returns the ranks' stdout."""
+    port = free_port()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pair_") as tmp:
+        files = [(open(Path(tmp) / f"out{r}", "w+"), open(Path(tmp) / f"err{r}", "w+"))
+                 for r in range(2)]
+        procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), *args],
+                                  env=rank_env(r, port), cwd=ROOT, stdout=o, stderr=e, text=True)
+                 for r, (o, e) in enumerate(files)]
+        end = time.monotonic() + MESH_DEADLINE_S
+        try:
+            while any(p.poll() is None for p in procs) and time.monotonic() < end:
+                if any(p.poll() not in (None, 0) for p in procs):
+                    time.sleep(5)  # the other rank's own error, then stop it
+                    break
+                time.sleep(0.2)
+        finally:
+            timed_out = any(p.poll() is None for p in procs)
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        outs = []
+        for r, (o, e) in enumerate(files):
+            o.seek(0)
+            e.seek(0)
+            outs.append(o.read())
+            for line in e.read().splitlines()[-40:]:
+                log(f"[{label} rank {r}] {line}")
+            o.close()
+            e.close()
+    for r, p in enumerate(procs):
+        check(p.returncode == 0, f"{label}: rank {r} exited {p.returncode}" +
+              (f" (stopped: past {MESH_DEADLINE_S} s or after the other's failure)"
+               if timed_out else ""))
+    return outs
+
+
+class BatcherResults:
+    """The token ids each ``ContinuousBatcher.run`` of this process returns,
+    by request id, while active."""
+
+    def __enter__(self):
+        from quantizers_tpu_torch.serve import session
+
+        self.cls, self.orig, self.results = session.ContinuousBatcher, \
+            session.ContinuousBatcher.run, {}
+        orig, results = self.orig, self.results
+
+        def run(batcher, *a, **kw):
+            res = orig(batcher, *a, **kw)
+            results.update(res)
+            return res
+        self.cls.run = run
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.run = self.orig
+        return False
+
+
+def serve_rank(out_path: str, argv: list) -> int:
+    """One rank of phase 30: ``cli/serve.main`` with ``argv``, its stdout,
+    log records, launch counts and token ids written to ``out_path``."""
+    from quantizers_tpu_torch.cli import serve
+    from quantizers_tpu_torch.ops import kernels as K
+
+    K.reset_launch_counts()
+    with BatcherResults() as res:
+        rc, out, rec = run_cli(serve.main, argv, "quantizers_tpu_torch.serve")
+    torch.cuda.synchronize()
+    steps, coll = rec.args("collectives")
+    n_tok, n_prompts, gen_s, _ = rec.args("generated")
+    Path(f"{out_path}.{os.environ['QTPU_PROCESS_ID']}").write_text(json.dumps({
+        "rc": rc, "stdout": out, "launches": K.launch_counts(), "steps": steps,
+        "collectives": coll, "load_s": rec.args("loaded")[1], "tokens": n_tok,
+        "prompts": n_prompts, "generate_s": gen_s, "peak_gb": next(
+            (r.args[0] for r in rec.records if r.msg.startswith("peak device memory")), None),
+        "results": {str(k): v for k, v in res.results.items()}}))
+    return 0
+
+
+def serve_mesh_phase(ckpt: Path, text: Path, detail) -> dict:
+    """Phase 30: ``cli/serve.main --mesh tp=2`` on path D's full-depth
+    checkpoint, as two ranks on cuda:0 over gloo, with phase 10's 8 prompts
+    and settings. Each rank loads the checkpoint on the host and keeps its
+    shard on the card. Checks: rank 0 prints phase 10's rids, rank 1
+    nothing; each rank launches K1, K2 and K3 only, K1 four times a layer a
+    forward (q|k|v, o_proj, gate|up and the row-parallel down_proj at local
+    K 4864), K3 once a forward, K2 once a layer a decode step; the tokens
+    equal phase 10's up to a near-tie of the single-process logits at the
+    first divergence."""
+    from quantizers_tpu_torch.models import ModelSpec
+
+    spec = ModelSpec(**GEOMETRY)
+    L = spec.num_layers
+    argv = serve_argv(ckpt, text) + ["--mesh", "tp=2"]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_mesh_") as tmp:
+        run_pair(["--serve-rank", str(Path(tmp) / "rank.json"), *argv], "phase 30")
+        ranks = [json.loads((Path(tmp) / f"rank.json.{r}").read_text()) for r in range(2)]
+    wall = time.perf_counter() - t0
+    rids = [re.findall(r"^(\d+)\t", r["stdout"], re.M) for r in ranks]
+    check(all(r["rc"] == 0 for r in ranks), "phase 30: serve --mesh returned non-zero")
+    check(rids[0] == [str(i) for i in range(8)] and rids[1] == [],
+          f"phase 30: rank 0 must print rids 0-7 and rank 1 nothing, got {rids}")
+    ref = detail["path_D_serve"]["token_ids"]
+    for r, rk in enumerate(ranks):
+        c = rk["launches"]
+        fwd = c["w8_matmul"]
+        want = expect(w4_matmul=4 * L * fwd, w8_matmul=fwd, decode_attention=L * rk["steps"])
+        check(fwd > 0 and c == want, f"phase 30 rank {r}: launches {c} != {want} "
+                                     f"(K1 on all four projections, K2, K3)")
+        check(rk["results"] == ranks[0]["results"], f"phase 30: rank {r}'s tokens differ")
+    got = ranks[0]["results"]
+    check(sorted(got) == sorted(ref), f"phase 30: rids {sorted(got)} != phase 10's {sorted(ref)}")
+    same = total = 0
+    parts = {}  # rid -> the first token where phase 30 parts from phase 10
+    for rid in sorted(ref, key=int):
+        a, b = got[rid], ref[rid]
+        n = min(len(a), len(b))
+        same += sum(int(x == y) for x, y in zip(a[:n], b[:n]))
+        total += max(len(a), len(b))
+        d = next((i for i in range(n) if a[i] != b[i]), None if len(a) == len(b) else n)
+        if d is not None:
+            parts[rid] = d
+    ties = single_process_gaps(ckpt, text, {rid: ref[rid][:d] for rid, d in parts.items()})
+    for rid, tie in ties.items():
+        check(tie["gap"] <= tie["window"], f"phase 30: rid {rid} parts from phase 10 at token "
+                                           f"{parts[rid]}, where the gap is no near-tie: {tie}")
+    r0 = ranks[0]
+    ar = r0["collectives"].get("all_reduce", {"calls": 0, "seconds": 0.0})
+    fwd = max(r0["launches"]["w8_matmul"], 1)
+    res = {"ranks": 2, "backend": "gloo", "device": "cuda:0 (both ranks)", "layers": L,
+           "prompts": 8, "tokens": r0["tokens"], "steps": r0["steps"], "forwards": fwd,
+           "load_s": [rk["load_s"] for rk in ranks], "generate_s": r0["generate_s"],
+           "tok_s": r0["tokens"] / r0["generate_s"], "ms_per_step": r0["generate_s"] /
+           r0["steps"] * 1e3, "peak_memory_gb": [rk["peak_gb"] for rk in ranks],
+           "all_reduces": ar["calls"], "all_reduces_per_forward": ar["calls"] / fwd,
+           "all_reduce_s": ar["seconds"], "all_reduce_ms_per_forward": ar["seconds"] / fwd * 1e3,
+           "collectives": r0["collectives"], "launches": [rk["launches"] for rk in ranks],
+           "token_share_equal": same / total, "first_divergence": parts,
+           "gaps_there": ties,
+           "phase_10": {k: detail["path_D_serve"][k] for k in ("load_s", "generate_s")},
+           "wall_s": wall}
+    detail["serve_mesh"] = res
+    log(f"[phase 30] {res}")
+    check(ar["calls"] == 2 * L * fwd, f"phase 30: {ar['calls']} all-reduces, want two a layer "
+                                       f"a forward ({2 * L * fwd})")
+    return res
+
+
+@torch.no_grad()
+def single_process_gaps(ckpt: Path, text: Path, prefixes: dict) -> dict:
+    """The single-process model's top-two gap where phase 30 first parted
+    from phase 10, for each rid of ``prefixes`` (rid -> phase 10's tokens
+    before that point): path D's checkpoint laid out as phase 10 serves it,
+    on the card, one forward over the prompt and the prefix. A gap within
+    MESH_TIE_RTOL of the largest |logit| is a near-tie."""
+    from quantizers_tpu_torch.data.simple_tokenizer import load_tokenizer
+    from quantizers_tpu_torch.models import forward
+    from quantizers_tpu_torch.models.loader import load_checkpoint
+    from quantizers_tpu_torch.serve import serving_layout
+
+    if not prefixes:
+        return {}
+    spec, params, _ = load_checkpoint(ckpt)
+    params = serving_layout(spec, params, head_bits=8)
+    tok, prompts = load_tokenizer(str(ckpt)), serve_prompts(text)
+    out = {}
+    for rid, prefix in prefixes.items():
+        ids = tok(prompts[int(rid)])["input_ids"] + list(prefix)
+        lg = forward(params, spec, torch.tensor([ids], device=params["embed"].device))[0][0, -1]
+        lg = lg.float()
+        top2 = lg.topk(2).values
+        out[rid] = {"gap": float(top2[0] - top2[1]),
+                    "window": MESH_TIE_RTOL * float(lg.abs().max()),
+                    "max_abs_logit": float(lg.abs().max())}
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def build_w4_params(spec, gen):
+    """Qwen3-4B params as path D's checkpoint holds them: random bf16
+    weights (std 0.02, the seeded generator) quantized to W4A16 g32 by the
+    port (``core.numerics.quantize``, ``from_quantized``), unit norms, a
+    tied bf16 embedding of std 0.02. (``build_params``' uniform codes give
+    every weight a mean of -0.004, whose 2-layer prefill logits the card's
+    own bf16 products already move by 12% from the CPU's f32 ones: too
+    ill-conditioned to hold a sharded run to 2%.)"""
+    from quantizers_tpu_torch.core import PRESET_SCHEMES, quantize
+    from quantizers_tpu_torch.ops.linear import from_quantized
+
+    args = PRESET_SCHEMES["W4A16_G32"].weights
+    dev = gen.device
+    D, Ff, hd = spec.hidden_size, spec.intermediate_size, spec.head_dim
+
+    def lin(n, k):
+        w = (torch.randn((n, k), device=dev, generator=gen) * 0.02).bfloat16()
+        return from_quantized(quantize(w, args), args)
+
+    def ones(n):
+        return torch.ones((n,), dtype=torch.bfloat16, device=dev)
+
+    layers = [{"input_layernorm": ones(D), "post_attention_layernorm": ones(D),
+               "q_proj": lin(spec.q_dim, D), "k_proj": lin(spec.kv_dim, D),
+               "v_proj": lin(spec.kv_dim, D), "o_proj": lin(D, spec.q_dim),
+               "q_norm": ones(hd), "k_norm": ones(hd),
+               "mlp": {"gate_proj": lin(Ff, D), "up_proj": lin(Ff, D), "down_proj": lin(D, Ff)}}
+              for _ in range(spec.num_layers)]
+    embed = (torch.randn((spec.vocab_size, D), device=dev, generator=gen) * 0.02).bfloat16()
+    return {"embed": embed, "layers": layers, "final_norm": ones(D), "lm_head": None}
+
+
+@torch.no_grad()
+def mesh_part_dense(spec, params, ids, dev) -> dict:
+    """Phase 31 (a): Qwen3-4B at 2 layers as ``serving_layout(head_bits=8)``
+    serves it, a teacher-forced (8, 128) prefill through the caches, then
+    MESH_GREEDY greedy steps."""
+    from quantizers_tpu_torch.models import KVCache, forward
+    from quantizers_tpu_torch.serve import serving_layout
+
+    p = serving_layout(spec, params, head_bits=8, device=dev)
+    caches = KVCache.init(spec, ids.shape[0], MAX_LEN, device=dev)
+    prefill, caches = forward(p, spec, ids, caches=caches)
+    chose, toks = [prefill[:, -1]], []
+    for _ in range(MESH_GREEDY):
+        toks.append(chose[-1].argmax(-1))
+        lg, caches = forward(p, spec, toks[-1][:, None], caches=caches)
+        chose.append(lg[:, 0])
+    torch.cuda.synchronize()
+    return {"prefill": prefill, "tokens": torch.stack(toks, 1), "chose": torch.stack(chose[:-1], 1)}
+
+
+@torch.no_grad()
+def mesh_part_forced(spec, params, ids, dev, replay=None) -> dict:
+    """Phase 31 (b) and (c): ``serving_layout(head_bits=8)``, a (8, MESH_T)
+    prefill, then MESH_DECODE teacher-forced one-token steps (8 tokens of
+    top-8: 64 slots, the slot kernel's path); the last position's logits of
+    each, and the router's decisions (replaying ``replay``'s where given)."""
+    from quantizers_tpu_torch.models import KVCache, forward
+    from quantizers_tpu_torch.serve import serving_layout
+
+    p = serving_layout(spec, params, head_bits=8, device=dev)
+    caches = KVCache.init(spec, ids.shape[0], 64, device=dev)
+    with RouteRecorder(replay) as rec:
+        lg, caches = forward(p, spec, ids[:, :MESH_T], caches=caches)
+        logits = [lg[:, -1]]
+        for t in range(MESH_T, MESH_T + MESH_DECODE):
+            lg, caches = forward(p, spec, ids[:, t:t + 1], caches=caches)
+            logits.append(lg[:, -1])
+    torch.cuda.synchronize()
+    moe = spec.is_moe and "gate_up_proj" in p["layers"][0]["moe"]
+    return {"logits": torch.stack(logits, 1), "routes": rec.calls, "w8pc": moe}
+
+
+def ring_plain(q, k, v, sm: float) -> torch.Tensor:
+    """Causal GQA attention as one f32 einsum, the group folded into q."""
+    B, H, T, d = q.shape
+    KV = k.shape[1]
+    qg = q.float().reshape(B, KV, H // KV, T, d)
+    s = torch.einsum("bgrtd,bgsd->bgrts", qg, k.float()) * sm
+    idx = torch.arange(T, device=q.device)
+    s = s.masked_fill(idx[None, :] > idx[:, None], -1e30)
+    out = torch.einsum("bgrts,bgsd->bgrtd", torch.softmax(s, dim=-1), v.float())
+    return out.reshape(B, H, T, -1).to(q.dtype)
+
+
+def mesh_rank(job_dir: str) -> int:
+    """One rank of phase 31: parts (a)-(c) at tp 2 and (d) at cp 2 on the
+    job's weights and inputs, each with its launch counts set to 0 just
+    before its drive and read just after; outputs to ``rank_<r>.pt``."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from quantizers_tpu_torch.ops import kernels as K
+    from quantizers_tpu_torch.parallel import initialize, make_mesh, ring_attention, shard_params
+    from quantizers_tpu_torch.parallel import collectives
+    from quantizers_tpu_torch.parallel.distributed import local_device, shutdown
+
+    t0 = time.perf_counter()
+    check(initialize() is True, "phase 31: initialize() brought up no process group")
+    r, dev = dist.get_rank(), local_device()
+    tp, cp = make_mesh({"tp": 2}), make_mesh({"cp": 2})
+    job = torch.load(Path(job_dir) / "job.pt", weights_only=False)
+    out = {"rank": r, "init_s": time.perf_counter() - t0, "parts": {}}
+
+    def digest(t):
+        return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+
+    for part in ("a", "b", "c"):
+        spec, raw, ids = job[part]["spec"], job[part]["params"], job[part]["ids"].to(dev)
+        t1 = time.perf_counter()
+        spec_l, shard = shard_params(spec, raw, tp)
+        shard_s = time.perf_counter() - t1
+        torch.cuda.synchronize()
+        collectives.reset_stats()
+        K.reset_launch_counts()
+        t1 = time.perf_counter()
+        if part == "a":
+            res = mesh_part_dense(spec_l, shard, ids, dev)
+        else:
+            res = mesh_part_forced(spec_l, shard, ids, dev, job[part].get("routes"))
+        drive_s = time.perf_counter() - t1
+        res.update(launches=K.launch_counts(), collectives=collectives.stats(), shard_s=shard_s,
+                   drive_s=drive_s, heads=(spec_l.num_heads, spec_l.num_kv_heads),
+                   peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                   digest=digest(res.get("prefill", res.get("logits"))))
+        out["parts"][part] = {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+                              for k, v in res.items()}
+        del shard, res
+        torch.cuda.empty_cache()
+    q, k, v = (job["d"][n].to(dev) for n in ("q", "k", "v"))
+    sm = 1 / math.sqrt(q.shape[-1])
+    ring_attention(q[..., :1024, :], k[..., :1024, :], v[..., :1024, :], sm, cp)  # warm
+    torch.cuda.synchronize()
+    collectives.reset_stats()
+    K.reset_launch_counts()
+    t1 = time.perf_counter()
+    ring = ring_attention(q, k, v, sm, cp)
+    torch.cuda.synchronize()
+    out["parts"]["d"] = {"out": ring.cpu(), "ring_s": time.perf_counter() - t1,
+                         "launches": K.launch_counts(), "collectives": collectives.stats(),
+                         "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                         "digest": digest(ring)}
+    torch.save(out, Path(job_dir) / f"rank_{r}.pt")
+    shutdown()
+    return 0
+
+
+def mesh_job(gen, tmp: Path) -> tuple:
+    """Phase 31's weights and inputs, made on the card from the seeded
+    generator and saved for the ranks as host tensors; and the single-process
+    card run of each part on them."""
+    from quantizers_tpu_torch.models import ModelSpec
+    from quantizers_tpu_torch.models.transformer import tree_to
+
+    cpu = torch.device("cpu")
+    job, ref = {}, {}
+    spec = ModelSpec(**dict(GEOMETRY, num_layers=2))
+    raw = build_w4_params(spec, gen)
+    ids = torch.randint(1, spec.vocab_size, (BATCH, MESH_PREFILL), device=gen.device,
+                        generator=gen)
+    ref["a"] = mesh_part_dense(spec, raw, ids, gen.device)
+    job["a"] = {"spec": spec, "params": tree_to(raw, cpu), "ids": ids.cpu()}
+    keep = (spec, raw, ids)
+    spec = ModelSpec(**dict(MOE_GEOMETRY, num_layers=2))
+    raw = build_moe_params(spec, gen, "packed")
+    ids = torch.randint(1, spec.vocab_size, (BATCH, MESH_T + MESH_DECODE), device=gen.device,
+                        generator=gen)
+    ref["b"] = mesh_part_forced(spec, raw, ids, gen.device)
+    check(ref["b"]["w8pc"], "phase 31 (b): the single-process run has no w8pc experts")
+    job["b"] = {"spec": spec, "params": tree_to(raw, cpu), "ids": ids.cpu(),
+                "routes": ref["b"]["routes"]}
+    del raw
+    spec = ModelSpec(**dict(MLA_GEOMETRY, num_layers=1))
+    raw = build_fp8_mla_params(spec, gen)
+    ids = torch.randint(1, spec.vocab_size, (BATCH, MESH_T + MESH_DECODE), device=gen.device,
+                        generator=gen)
+    ref["c"] = mesh_part_forced(spec, raw, ids, gen.device)
+    job["c"] = {"spec": spec, "params": tree_to(raw, cpu), "ids": ids.cpu()}
+    del raw
+    B, H, KV, T, d = RING_SHAPE
+    q = torch.randn((B, H, T, d), device=gen.device, generator=gen).bfloat16()
+    k, v = (torch.randn((B, KV, T, d), device=gen.device, generator=gen).bfloat16()
+            for _ in range(2))
+    job["d"] = {"q": q.cpu(), "k": k.cpu(), "v": v.cpu()}
+    ref["d"] = {"q": q, "k": k, "v": v}
+    torch.save(job, tmp / "job.pt")
+    return ref, keep
+
+
+def greedy_agree(label: str, got: torch.Tensor, ref: torch.Tensor, chose: torch.Tensor) -> dict:
+    """Greedy tokens (B, n) against the single-process run's, whose logits
+    ``chose`` (B, n, V) picked them: a row may part only where those logits'
+    top two lie within MESH_TIE_RTOL of their largest |logit|."""
+    rows = []
+    for b in range(ref.shape[0]):
+        differ = (got[b] != ref[b]).nonzero()
+        if differ.numel():
+            t = int(differ[0])
+            lg = chose[b, t].float()
+            top2 = lg.topk(2).values
+            gap, window = float(top2[0] - top2[1]), MESH_TIE_RTOL * float(chose.float().abs().max())
+            rows.append({"row": b, "step": t, "gap": gap, "window": window})
+            check(gap <= window, f"{label}: row {b} parts from the single-process tokens at "
+                                 f"step {t}, where the gap {gap:.4g} is no near-tie ({window:.4g})")
+    return {"tokens_equal": float((got == ref).float().mean()), "divergences": rows}
+
+
+def mesh_pair_phase(gen, detail) -> tuple:
+    """Phase 31: the pair of ranks (this script, ``--mesh-rank``) against the
+    single-process card run on the same seeded weights: (a) Qwen3-4B at
+    full width, 2 layers, tp 2 (K1 at the shard shapes, K2 at KV 4 rep 4,
+    K3); (b) Qwen3-30B-A3B, 2 layers, tp 2, w8pc experts split over tp (K7
+    at E 64, K2 at KV 2 rep 8), the router's picks replayed after they are
+    compared; (c) path E's FP8_BLOCK MLA layer at tp 2 (K9 at the shard
+    shapes, K8 at H 8); (d) ``ring_attention`` at cp 2 against the
+    single-process flash kernel (K4) and the plain einsum."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        t0 = time.perf_counter()
+        ref, keep = mesh_job(gen, Path(tmp))
+        job_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        run_pair(["--mesh-rank", tmp], "phase 31")
+        pair_s = time.perf_counter() - t0
+        ranks = [torch.load(Path(tmp) / f"rank_{r}.pt", weights_only=False) for r in range(2)]
+    got = {p: ranks[0]["parts"][p] for p in "abcd"}
+    for p in "abcd":
+        check(ranks[0]["parts"][p]["digest"] == ranks[1]["parts"][p]["digest"],
+              f"phase 31 ({p}): the two ranks' outputs differ")
+    res = {"job_s": job_s, "pair_s": pair_s, "init_s": [r["init_s"] for r in ranks]}
+    # (a)
+    a, ra = got["a"], ref["a"]
+    res["a"] = {"prefill": logits_agree("phase 31 (a) prefill", a["prefill"].float(),
+                                        ra["prefill"].float().cpu(), tie_rtol=MESH_TIE_RTOL),
+                "greedy": greedy_agree("phase 31 (a)", a["tokens"], ra["tokens"].cpu(),
+                                       ra["chose"].cpu())}
+    check(a["launches"] == expect(w4_matmul=a["launches"]["w4_matmul"],
+                                  decode_attention=2 * MESH_GREEDY, w8_matmul=MESH_GREEDY)
+          and a["launches"]["w4_matmul"] == 2 * 4 * MESH_GREEDY,
+          f"phase 31 (a): launches {a['launches']}")
+    # (b)
+    b, rb = got["b"], ref["b"]
+    flips = near = 0
+    for c, ((ti, _, _), (ri, pk, pk1)) in enumerate(zip(b["routes"], rb["routes"])):
+        for n in range(ri.shape[0]):
+            tie = bool(pk[n] - pk1[n] <= ROUTE_GAP_RTOL * pk[n])
+            near += int(tie)
+            if set(ti[n].tolist()) != set(ri[n].tolist()):
+                flips += 1
+                check(tie, f"phase 31 (b): router pick differs at call {c}, token {n}, no near-tie")
+    check(len(b["routes"]) == len(rb["routes"]) == 2 * (1 + MESH_DECODE),
+          "phase 31 (b): router calls")
+    res["b"] = {"router_decisions": sum(x[0].shape[0] for x in rb["routes"]),
+                "router_flips": flips, "router_near_ties": near,
+                "logits": logits_agree("phase 31 (b) decode", b["logits"].float(),
+                                       rb["logits"].float().cpu(), tie_rtol=MESH_TIE_RTOL)}
+    # K3: the heads (the prefill's and each step's) and, in the prefill's loop
+    # over a rank's 64 experts, their gate|up and down in each of 2 layers
+    check(b["w8pc"] and b["launches"] == expect(
+        moe_slot_gu_ffn=2 * MESH_DECODE, decode_attention=2 * MESH_DECODE,
+        w8_matmul=1 + MESH_DECODE + 2 * 2 * MOE_GEOMETRY["num_experts"] // 2),
+        f"phase 31 (b): launches {b['launches']}")
+    # (c)
+    c_, rc = got["c"], ref["c"]
+    res["c"] = {"logits": logits_agree("phase 31 (c) decode", c_["logits"].float(),
+                                       rc["logits"].float().cpu(), tie_rtol=MESH_TIE_RTOL)}
+    check(c_["launches"] == expect(fp8_matmul=4 * (1 + MESH_DECODE),
+                                   mla_decode_attention=MESH_DECODE, w8_matmul=1 + MESH_DECODE),
+          f"phase 31 (c): launches {c_['launches']}")
+    # (d)
+    from quantizers_tpu_torch.ops import flash
+
+    q, k, v = (ref["d"][n] for n in ("q", "k", "v"))
+    sm = 1 / math.sqrt(q.shape[-1])
+    flash.flash_attention(q, k, v, sm)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fl = flash.flash_attention(q, k, v, sm)
+    torch.cuda.synchronize()
+    flash_s = time.perf_counter() - t0
+    plain = ring_plain(q, k, v, sm)
+    ring = got["d"]["out"].to(q.device).float()
+    errs = {}
+    for name, want in (("flash", fl.float()), ("plain", plain.float())):
+        err = float((ring - want).abs().max())
+        errs[name] = {"max_abs_err": err, "tol": LOGIT_RTOL * float(want.abs().max())}
+        check(err <= errs[name]["tol"], f"phase 31 (d): ring vs {name}: {errs[name]}")
+    check(sum(got["d"]["launches"].values()) == 0, "phase 31 (d): the ring launched a kernel")
+    res["d"] = {"shape": list(RING_SHAPE), "ring_s": got["d"]["ring_s"], "flash_s": flash_s,
+                "hops": got["d"]["collectives"].get("ring_hop", {}), **errs}
+    for p in "abc":
+        res[p].update({k: got[p][k] for k in ("launches", "collectives", "shard_s", "drive_s",
+                                             "heads")},
+                      peak_gb=[r["parts"][p]["peak_gb"] for r in ranks])
+    res["d"]["peak_gb"] = [r["parts"]["d"]["peak_gb"] for r in ranks]
+    detail["mesh_pair"] = res
+    log(f"[phase 31] {json.dumps(res, default=str)[:4000]}")
+    del ref
+    torch.cuda.empty_cache()
+    return res, keep
+
+
+def nccl_phase(detail, keep) -> dict:
+    """Phase 32: NCCL in this process at world size 1: ``initialize``, one
+    all-reduce, and phase 31 (a)'s forward through the mesh path at tp 1,
+    equal to the plain path bit for bit; then the group is destroyed."""
+    import torch.distributed as dist
+
+    from quantizers_tpu_torch.models import forward
+    from quantizers_tpu_torch.parallel import initialize, make_mesh, shard_params
+    from quantizers_tpu_torch.parallel.distributed import shutdown
+
+    spec, raw, ids = keep
+    t0 = time.perf_counter()
+    check(initialize(f"127.0.0.1:{free_port()}", 1, 0, local_device_ids=[0], backend="nccl"),
+          "phase 32: initialize")
+    check(dist.get_backend() == "nccl", f"phase 32: backend {dist.get_backend()}")
+    t = torch.arange(1024, dtype=torch.float32, device=ids.device)
+    dist.all_reduce(t)
+    torch.cuda.synchronize()
+    check(torch.equal(t, torch.arange(1024, dtype=torch.float32, device=ids.device)),
+          "phase 32: all_reduce at world size 1 changed the tensor")
+    mesh = make_mesh({"tp": 1})
+    spec_l, p = shard_params(spec, raw, mesh)
+    with torch.no_grad():
+        got, _ = forward(p, spec_l, ids[:2, :64])
+        want, _ = forward(raw, spec, ids[:2, :64])
+    check(torch.equal(got, want), "phase 32: the tp 1 mesh path differs from the plain path")
+    shutdown()
+    check(not dist.is_initialized(), "phase 32: the process group is still up")
+    res = {"backend": "nccl", "world": 1, "seconds": time.perf_counter() - t0,
+           "forward_equal": True}
+    detail["nccl"] = res
+    log(f"[phase 32] {res}")
+    return res
+
+
 def main() -> int:
     # the port is imported inside the phases, so that a copy of this script
     # without the package beside it says so plainly
@@ -5004,6 +5650,8 @@ def main() -> int:
     offset_views(gen, detail)
     w8a8_rows = w8a8_kernels(gen, detail)
     gptq_rows = gptq_kernels(gen, detail)
+    # the kernels of phases 30-31 at a rank's shard shapes
+    shard_rows = mesh_kernels(gen, detail)
     phase_s = detail["phase_s"] = {"kernels": time.perf_counter() - t_start}
 
     def lap(name: str) -> None:
@@ -5042,8 +5690,12 @@ def main() -> int:
         _, ckpt, text, counts_d = eval_phase(gen, detail, Path(tmp))
         serve_cli_phase(ckpt, text, detail)
         torch.cuda.empty_cache()
+        lap("path_D")
+        # phase 30: serve --mesh tp=2 on the same checkpoint, two ranks on the card
+        serve_mesh_phase(ckpt, text, detail)
+        lap("serve_mesh")
         card_vs_cpu_ppl(gen, detail, Path(tmp), text)
-    lap("path_D")
+    lap("path_D_card_vs_cpu")
 
     # phases 12-14: path E (slice 5's main path), its batcher, card against CPU
     spec_e, params_e, counts_e = serve_mla_phase(gen, detail)
@@ -5061,6 +5713,15 @@ def main() -> int:
     # protocol through the CLIs, card against CPU)
     training_phases(detail)
     lap("training")
+
+    # phases 31-32: the pair of rank workers against the single-process run,
+    # then NCCL at world size 1 in this process
+    _, keep = mesh_pair_phase(gen, detail)
+    lap("mesh_pair")
+    nccl_phase(detail, keep)
+    del keep
+    torch.cuda.empty_cache()
+    lap("nccl")
 
     # phase 15: the kernels line (w4, the NVFP4 and the fp8 matmuls: the four
     # calls of one decoder layer at m = 8, summed; K11: the 208 launches of
@@ -5171,6 +5832,16 @@ def main() -> int:
          "tol": 0.0, **{key: k11_layer[key] for key in ("ms", "dev_ms", "plain_ms", "bound_ms")},
          "bound_by": "bytes", "library_ms": None},
     ]
+    # each kernel's launches under the mesh: phase 30's rank 0 and phase 31's
+    # parts (the ranks' counts are equal)
+    mesh_runs = {"phase 30 rank 0": detail["serve_mesh"]["launches"][0],
+                 **{f"phase 31 ({p})": detail["mesh_pair"][p]["launches"] for p in "abc"}}
+    for k in kernels_line:
+        k["mesh_launches"] = {run: c[k["name"]] for run, c in mesh_runs.items()
+                              if c.get(k["name"])}
+        if k["name"] in shard_rows:  # checked at the shard shapes in phase 3
+            k["mesh_shapes"] = {f"mesh_{key}": v for key, v in worst(shard_rows[k["name"]]).items()}
+            k["mesh_shapes"]["checked"] = sorted(shard_rows[k["name"]])
     check(all(k["launches"] > 0 for k in kernels_line), "a kernel never launched on its path")
     check(kernels_line[-2]["max_abs_err"] == 0.0, "w8a8_token_matmul: not bit-exact")
     check(kernels_line[-1]["max_abs_err"] == 0.0, "gptq_block: not bit-exact")
@@ -5192,4 +5863,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] in (["--mesh-rank"], ["--serve-rank"]):
+        # a rank of phase 30 or 31, started by this script
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        sys.exit(mesh_rank(sys.argv[2]) if sys.argv[1] == "--mesh-rank"
+                 else serve_rank(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

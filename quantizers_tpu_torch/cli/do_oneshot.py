@@ -117,6 +117,9 @@ def save_result(spec, res, out_dir, tokenizer, model_path: Path, device) -> None
 
 
 def main(argv=None) -> int:
+    from ..utils import enable_persistent_cache
+
+    enable_persistent_cache()  # the kernels' library, built once for every later process
     os.environ.setdefault("TOKENIZERS_PARALLELISM", "false")
     args = parse_args(argv)
     setup_logging(args.log_file, args.debug)

@@ -59,6 +59,9 @@ def make_batches(ids: np.ndarray, window: int, stride: int, batch_size: int,
 
 
 def main(argv=None) -> int:
+    from ..utils import enable_persistent_cache
+
+    enable_persistent_cache()  # the kernels' library, built once for every later process
     p = argparse.ArgumentParser()
     p.add_argument("ckpt_dir")
     p.add_argument("text_file")

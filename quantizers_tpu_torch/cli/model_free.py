@@ -17,6 +17,9 @@ import sys
 
 
 def main(argv=None) -> int:
+    from ..utils import enable_persistent_cache
+
+    enable_persistent_cache()  # the kernels' library, built once for every later process
     p = argparse.ArgumentParser(description="Data-free PTQ over a local checkpoint")
     p.add_argument("model_dir")
     p.add_argument("save_directory")

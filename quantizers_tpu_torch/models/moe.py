@@ -14,6 +14,15 @@ is a valid :class:`~quantizers_tpu_torch.ops.linear.QuantLinear`.
   token through ``QuantLinear.apply`` and zeroes the unrouted contributions
   with the dense combine weights.
 
+Under expert parallelism (:func:`~quantizers_tpu_torch.parallel.shard_params`)
+a rank's stacks hold experts ``[first, first + E/shards)`` of the ``E``
+(``ExpertLinears.first`` / ``shards``): the router runs on the replicated
+hidden state over all ``E`` experts, each rank computes its own experts'
+slots (a slot routed elsewhere is remapped to a local index and its
+output set to zero with ``torch.where``, so that shapes stay static and no
+NaN of a foreign slot leaks in) and the outputs are summed over the ranks
+of ``moe["expert_group"]`` in f32.
+
 With a ``capture`` dict (calibration), the loop runs whatever the token
 count and records the JAX package's keys: ``router``, ``moe_gate_proj`` and
 ``moe_up_proj`` (one tensor: the pre-routing tokens (N, D)),
@@ -36,7 +45,9 @@ from ..ops.linear import QuantLinear, dequantize_stack
 @dataclasses.dataclass
 class ExpertLinears:
     """E stacked :class:`QuantLinear` s sharing kind and meta: tensors with
-    a leading expert axis; ``kind``/``meta`` describe one expert's layout."""
+    a leading expert axis; ``kind``/``meta`` describe one expert's layout.
+    A rank's shard of a stack split over ``shards`` ranks holds experts
+    ``[first, first + num_experts)``."""
 
     kind: str
     weight: torch.Tensor  # (E, ...)
@@ -44,6 +55,8 @@ class ExpertLinears:
     zero_point: Optional[torch.Tensor] = None
     bias: Optional[torch.Tensor] = None
     meta: Tuple[Tuple[str, Any], ...] = ()
+    shards: int = 1
+    first: int = 0
 
     @property
     def num_experts(self) -> int:
@@ -156,6 +169,11 @@ def _gathered_topk_ffn(moe: Dict[str, Any], h2: torch.Tensor, topi: torch.Tensor
 
     N, k = topi.shape
     idx = topi.reshape(-1).to(torch.int32)  # (N*k,)
+    local = None
+    first, E_l = moe["down_proj"].first, moe["down_proj"].num_experts
+    if moe["down_proj"].shards > 1:  # another rank holds the slots outside [first, first + E_l)
+        local = (idx >= first) & (idx < first + E_l)
+        idx = torch.where(local, idx - first, torch.zeros_like(idx))
     xs = torch.repeat_interleave(h2, k, dim=0)  # (N*k, D)
     if "gate_up_proj" in moe:  # the fused w8pc serving layout
         gu, down = moe["gate_up_proj"], moe["down_proj"]
@@ -175,6 +193,8 @@ def _gathered_topk_ffn(moe: Dict[str, Any], h2: torch.Tensor, topi: torch.Tensor
             u = _slot_matmul(xs, _slot_dequant(up, idx))
             a = (F.silu(g) * u).to(h2.dtype)
             y = _slot_matmul(a, _slot_dequant(down, idx))
+    if local is not None:
+        y = torch.where(local[:, None], y, torch.zeros_like(y))
     y = y.reshape(N, k, -1) * topv[:, :, None].float()
     return y.sum(dim=1)
 
@@ -211,9 +231,12 @@ def moe_forward(moe: Dict[str, Any], spec, x: torch.Tensor,
                     for key in ("gate_up_proj", "gate_proj", "up_proj", "down_proj")
                     if key in moe)
     shared = moe.get("shared_experts")
+    group = moe.get("expert_group")
     if (capture is None and not all_experts and bias_free
             and N <= _GATHER_DECODE_MAX_TOKENS and N * k < spec.num_experts):
         y = _gathered_topk_ffn(moe, h2, topi, topv)
+        if group is not None:
+            y = group.all_reduce_f32(y)
         if shared is not None:
             y = y + _shared_ffn(shared, h2)
         return y.to(x.dtype).reshape(B, T, D)
@@ -224,7 +247,7 @@ def moe_forward(moe: Dict[str, Any], spec, x: torch.Tensor,
     down: ExpertLinears = moe["down_proj"]
     y = torch.zeros((N, D), dtype=torch.float32, device=x.device)
     down_inputs = []
-    for e in range(E):
+    for e in range(down.num_experts):  # this rank's experts: first + e of the E
         if "gate_up_proj" in moe:  # fused w8pc layout: one apply gives gate|up
             guv = moe["gate_up_proj"].expert(e).apply(h2).float()
             Fe = guv.shape[-1] // 2
@@ -235,7 +258,9 @@ def moe_forward(moe: Dict[str, Any], spec, x: torch.Tensor,
         if capture is not None:
             down_inputs.append(a)
         out = down.expert(e).apply(a)  # (N, D)
-        y = y + weights[:, e, None] * out.float()
+        y = y + weights[:, down.first + e, None] * out.float()
+    if group is not None:
+        y = group.all_reduce_f32(y)
     if shared is not None:
         y = y + _shared_ffn(shared, h2, capture)
     if capture is not None:

@@ -41,7 +41,7 @@ import torch.nn.functional as F
 from .._device import DeviceLike, resolve_device
 from ..ops._launch import records_grad
 from ..ops.dispatch import matmul_f32acc
-from ..ops.linear import QuantLinear, concat_linears, dense_linear
+from ..ops.linear import QuantLinear, _is_shard_wrapper, concat_linears, dense_linear
 from .config import ModelSpec
 from .moe import ExpertLinears, moe_forward
 
@@ -196,7 +196,12 @@ def attention(layer: Dict[str, Any], spec: ModelSpec, x: torch.Tensor,
               positions: torch.Tensor, cache: Optional[KVCache],
               capture: Optional[Dict[str, torch.Tensor]] = None
               ) -> Tuple[torch.Tensor, Optional[KVCache]]:
-    """x (B, T, D) post-layernorm -> (attn_out (B, T, D), cache)."""
+    """x (B, T, D) post-layernorm -> (attn_out (B, T, D), cache).
+
+    Under tensor parallelism ``spec`` is the rank's own
+    (:func:`~quantizers_tpu_torch.parallel.mesh.local_spec`): its heads and
+    KV heads, which its q/k/v shards and its cache hold, and o_proj is a
+    row-parallel shard whose ``apply`` sums the ranks' outputs."""
     from ..ops import flash, kernels
 
     B, T, _ = x.shape
@@ -451,6 +456,10 @@ def embed(params: Dict[str, Any], input_ids: torch.Tensor, dtype=torch.bfloat16)
 
 
 def logits_head(params: Dict[str, Any], spec: ModelSpec, x: torch.Tensor) -> torch.Tensor:
+    """The final norm and the logits. A column-parallel head (a rank's
+    :class:`~quantizers_tpu_torch.parallel.collectives.ColumnGather`)
+    gathers its ranks' columns; a tied or replicated head computes them
+    all on every rank, from the same hidden state."""
     x = rms_norm(x, params["final_norm"], spec.rms_norm_eps)
     head = params.get("lm_head")
     if head is not None:
@@ -528,6 +537,12 @@ def quantize_lm_head(spec: ModelSpec, params: Dict[str, Any],
     from ..core.scheme import QuantizationArgs, QuantStrategy, QuantType
     from ..ops.linear import from_quantized
 
+    head = params.get("lm_head")
+    if _is_shard_wrapper(head):
+        # a rank's columns of a column-parallel head: per-channel scales
+        # quantize each column on its own, so the rank quantizes its shard
+        inner = quantize_lm_head(spec, dict(params, lm_head=head.shard), num_bits)["lm_head"]
+        return dict(params, lm_head=head.with_shard(inner))
     bias = None
     if params.get("lm_head") is not None:
         w_vd = params["lm_head"].dequantize(torch.float32).t()  # (V, D)
@@ -561,7 +576,7 @@ def tree_to(tree: Any, device: torch.device) -> Any:
         return {k: tree_to(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_to(v, device) for v in tree)
-    if isinstance(tree, (QuantLinear, ExpertLinears, torch.Tensor)):
+    if isinstance(tree, (QuantLinear, ExpertLinears, torch.Tensor)) or _is_shard_wrapper(tree):
         return tree.to(device)
     return tree
 

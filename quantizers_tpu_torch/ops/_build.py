@@ -3,15 +3,22 @@
 Each ``.cu`` file has a plain C interface. At first use every source is
 compiled by its own ``nvcc`` process (all started together) for ``sm_90a``,
 the objects are linked into one shared library, and the library is loaded
-with ``ctypes``. The library lives under ``_kernels_build/<hash>/``, keyed by
-a hash of the sources and flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is. A failed build raises.
+with ``ctypes``. The library lives under ``_kernels_build/<hash>/`` (or the
+directory :func:`~quantizers_tpu_torch.utils.enable_persistent_cache` sets),
+keyed by a hash of the sources and flags, so an edited source is rebuilt and
+an unchanged one is loaded as it is. A failed build raises.
+
+Several processes may start at once (the ranks of one multi-device run):
+the check, the build and the install of a new hash run under an exclusive
+file lock in the build directory, so one process compiles and the others
+wait, then load its library.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import fcntl
 import hashlib
 import os
 import shutil
@@ -23,7 +30,7 @@ from typing import Optional
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-BUILD_ROOT = _PKG / "_kernels_build"
+DEFAULT_BUILD_ROOT = _PKG / "_kernels_build"
 SOURCES = ("w4_matmul.cu", "w8_matmul.cu", "decode_attention.cu", "nvfp4_matmul.cu",
            "moe_slot_ffn.cu", "moe_slot_gu_ffn.cu", "flash_attention.cu", "fp8_matmul.cu",
            "mla_decode_attention.cu", "w8a8_matmul.cu", "w8a8_matmul_f16.cu",
@@ -83,6 +90,26 @@ class BuildInfo:
 
 _LIB: Optional[ctypes.CDLL] = None
 INFO = BuildInfo()
+#: where the library is built: a directory, or None for a temporary one of
+#: this process's own (the persistent cache disabled)
+_BUILD_ROOT: Optional[Path] = DEFAULT_BUILD_ROOT
+_TMP_ROOT: Optional[Path] = None
+
+
+def set_build_root(path: Optional[Path]) -> None:
+    """Build into ``path`` from now on; None builds into a temporary
+    directory of this process's own."""
+    global _BUILD_ROOT
+    _BUILD_ROOT = None if path is None else Path(path)
+
+
+def build_root() -> Path:
+    global _TMP_ROOT
+    if _BUILD_ROOT is not None:
+        return _BUILD_ROOT
+    if _TMP_ROOT is None:
+        _TMP_ROOT = Path(tempfile.mkdtemp(prefix="qtt_kernels_"))
+    return _TMP_ROOT
 
 
 def _nvcc() -> str:
@@ -129,24 +156,43 @@ def _compile(out_dir: Path) -> str:
     return "\n".join(logs)
 
 
+def library_path() -> Path:
+    """The path of the kernels' library for the current sources, built and
+    installed first where it is not there. The build runs under an
+    exclusive lock on ``<root>/.build.lock``: a process that finds the
+    library after waiting for the lock loads it as it is."""
+    root = build_root()
+    final = root / source_hash()
+    lib_path = final / "libqtt_kernels.so"
+    if lib_path.exists():
+        return lib_path
+    root.mkdir(parents=True, exist_ok=True)
+    with open(root / ".build.lock", "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if lib_path.exists():  # another process built it while this one waited
+                return lib_path
+            if final.exists():  # a directory without its library: not one of ours
+                shutil.rmtree(final)
+            tmp = Path(tempfile.mkdtemp(prefix="build-", dir=root))
+            try:
+                INFO.log = _compile(tmp)
+                os.replace(tmp, final)
+            finally:
+                shutil.rmtree(tmp, ignore_errors=True)
+            INFO.built = True
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return lib_path
+
+
 def load() -> ctypes.CDLL:
     """The kernels' shared library, built first if its hash is new."""
     global _LIB
     if _LIB is not None:
         return _LIB
     t0 = time.perf_counter()
-    final = BUILD_ROOT / source_hash()
-    lib_path = final / "libqtt_kernels.so"
-    if not lib_path.exists():
-        BUILD_ROOT.mkdir(parents=True, exist_ok=True)
-        tmp = Path(tempfile.mkdtemp(prefix="build-", dir=BUILD_ROOT))
-        try:
-            INFO.log = _compile(tmp)
-            if not final.exists():
-                os.replace(tmp, final)
-        finally:
-            shutil.rmtree(tmp, ignore_errors=True)
-        INFO.built = True
+    lib_path = library_path()
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

@@ -101,11 +101,19 @@ def _w4_reason(lin: QuantLinear) -> Optional[str]:
     k, n, g = int(md["k"]), int(md["n"]), int(md["group_size"])
     if lin.zero_point is not None:
         return "asymmetric w4 goes through the reference path"
+    # on the card, the CUDA entry's own conditions (csrc/w4_matmul.cu:
+    # qtt_w4_matmul): 16-byte rows of both planes of x (8 | K/2) and whole
+    # 128-column tiles; its K stages are 128 rows, so a tensor-parallel
+    # down_proj (Qwen3-4B's local K 4864 at tp 2, 2432 at tp 4) stays on it.
+    # Weights on the CPU keep the JAX kernel's tiling (8g | K/2) as well, so
+    # that the CPU takes the JAX package's routes and its tests hold the port
+    # to them
     if k % (2 * g) or n % 128 or g % 2:
         return f"w4 kernel needs 2g|K and 128|N (k={k}, n={n}, g={g})"
-    if (k // 2) % (8 * g):
-        # the JAX kernel's K tiles are multiples of 8g packed rows
-        return f"w4 kernel needs 8g | K/2 (k={k}, g={g})"
+    if (k // 2) % 8:
+        return f"w4 kernel needs 8 | K/2 (k={k})"
+    if lin.weight.device.type != "cuda" and (k // 2) % (8 * g):
+        return f"w4 off the card: the JAX kernel's tiling needs 8g | K/2 (k={k}, g={g})"
     if lin.weight.dtype != torch.uint8 or lin.scale.dtype != torch.bfloat16:
         return "w4 kernel takes packed uint8 weights with bf16 scales"
     return None

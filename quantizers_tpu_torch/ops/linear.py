@@ -361,15 +361,27 @@ def _is_expert_stack(x: Any) -> bool:
 
 
 def infer_expert_shards(tree: Any) -> int:
-    """How many ways the expert stacks are sharded: 1 until the port's
-    multi-device slice (ROADMAP queue 1, slice 8)."""
+    """How many ways the expert stacks are sharded (1 if unsharded): the
+    shard count that :func:`~quantizers_tpu_torch.parallel.shard_params`
+    records on the first expert stack of the tree."""
+    for leaf in _leaves(tree):
+        if _is_expert_stack(leaf):
+            return int(getattr(leaf, "shards", 1))
     return 1
+
+
+def _is_shard_wrapper(x: Any) -> bool:
+    """A rank's shard of a linear wrapped with its collective
+    (:mod:`~quantizers_tpu_torch.parallel.collectives`)."""
+    return hasattr(x, "with_shard")
 
 
 def _leaves(tree: Any):
     """The quantized linears, expert stacks and plain tensors of a params
-    tree, in order."""
-    if isinstance(tree, dict):
+    tree, in order (a parallel wrapper's shard in its place)."""
+    if _is_shard_wrapper(tree):
+        yield from _leaves(tree.shard)
+    elif isinstance(tree, dict):
         for v in tree.values():
             yield from _leaves(v)
     elif isinstance(tree, (list, tuple)):
@@ -381,7 +393,10 @@ def _leaves(tree: Any):
 
 def _map_leaves(tree: Any, fn) -> Any:
     """The params tree with ``fn`` applied to every leaf (new dicts and
-    lists; ``fn`` returns a leaf as it is to keep it)."""
+    lists; ``fn`` returns a leaf as it is to keep it); a parallel wrapper
+    is kept around ``fn`` of its shard."""
+    if _is_shard_wrapper(tree):
+        return tree.with_shard(_map_leaves(tree.shard, fn))
     if isinstance(tree, dict):
         return {k: _map_leaves(v, fn) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -402,7 +417,10 @@ def nvfp4_capacity_plan(tree: Any, hbm_bytes: Optional[int] = None,
     (``int8_bytes``, one more byte per packed byte or fp8 weight), against
     ``(1 - headroom)`` of the device's memory (``hbm_bytes``, by default
     :func:`device_hbm_bytes` of ``device``). Expert stacks divide by
-    ``expert_shards``."""
+    ``expert_shards``, as the JAX package's, which sees whole stacks: a
+    rank's shard of a stack (``shards`` > 1) is counted as the whole stack
+    first, so that a rank's own tree plans its own bytes. Other leaves are
+    counted as the tree holds them."""
     if hbm_bytes is None:
         hbm_bytes = device_hbm_bytes(device)
     packed_total = 0
@@ -411,11 +429,13 @@ def nvfp4_capacity_plan(tree: Any, hbm_bytes: Optional[int] = None,
         if isinstance(leaf, torch.Tensor):
             packed_total += _nbytes(leaf)
             continue
-        div = expert_shards if _is_expert_stack(leaf) else 1
+        div, whole = 1, 1
+        if _is_expert_stack(leaf):
+            div, whole = expert_shards, int(getattr(leaf, "shards", 1))
         nb = sum(_nbytes(t) for t in (leaf.weight, leaf.scale, leaf.zero_point, leaf.bias))
-        packed_total += nb // div
+        packed_total += nb * whole // div
         if (leaf.kind == "nvfp4" and leaf.weight.dtype == torch.uint8) or leaf.kind == "fp8":
-            int8_extra += _nbytes(leaf.weight) // div
+            int8_extra += _nbytes(leaf.weight) * whole // div
     budget = int((1.0 - headroom) * hbm_bytes)
     int8_total = packed_total + int8_extra
     return {"hbm_bytes": int(hbm_bytes), "budget_bytes": budget,
@@ -515,7 +535,8 @@ def experts_to_w8pc(el: Any, chunk: int = 16) -> Any:
         scs.append(sc.float())
         del W
     return ExpertLinears(kind="w8", weight=torch.cat(w8s), scale=torch.cat(scs), bias=el.bias,
-                         meta=(("k", k), ("n", n), ("group_size", None)))
+                         meta=(("k", k), ("n", n), ("group_size", None)),
+                         shards=el.shards, first=el.first)
 
 
 def fuse_experts_gate_up(gate_el: Any, up_el: Any) -> Any:
@@ -523,8 +544,9 @@ def fuse_experts_gate_up(gate_el: Any, up_el: Any) -> Any:
     (E, K, 2F) stack (meta ``fused="gate_up"``)."""
     from ..models.moe import ExpertLinears
 
-    if gate_el.kind != up_el.kind or gate_el.meta != up_el.meta:
-        raise ValueError("gate/up fusion requires matching kind and meta")
+    if (gate_el.kind != up_el.kind or gate_el.meta != up_el.meta
+            or (gate_el.shards, gate_el.first) != (up_el.shards, up_el.first)):
+        raise ValueError("gate/up fusion requires matching kind, meta and experts")
     n2 = 2 * int(dict(gate_el.meta)["n"])
     meta = tuple((key, v) if key != "n" else ("n", n2) for key, v in gate_el.meta)
     meta = meta + (("fused", "gate_up"),)
@@ -536,7 +558,8 @@ def fuse_experts_gate_up(gate_el: Any, up_el: Any) -> Any:
         return torch.cat([a, b], dim=-1)
 
     return ExpertLinears(kind=gate_el.kind, weight=cat("weight"), scale=cat("scale"),
-                         zero_point=cat("zero_point"), bias=cat("bias"), meta=meta)
+                         zero_point=cat("zero_point"), bias=cat("bias"), meta=meta,
+                         shards=gate_el.shards, first=gate_el.first)
 
 
 def moe_w8pc_layout(tree: Any) -> Any:

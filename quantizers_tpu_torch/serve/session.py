@@ -108,7 +108,14 @@ def serving_layout(spec: ModelSpec, params: Dict[str, Any],
 
     A layer's expert stacks are dropped as soon as they are requantized:
     when the caller keeps no other reference to ``params``, the packed and
-    the w8pc experts are not resident in full at the same time."""
+    the w8pc experts are not resident in full at the same time.
+
+    Under a mesh, ``params`` is a rank's own tree
+    (:func:`~quantizers_tpu_torch.parallel.shard_params`, with its local
+    spec): the layout runs on the shards in the JAX package's order (shard,
+    then these steps), each step applying itself to the shard inside a
+    parallel wrapper, and the plan sees the expert stacks' real shard
+    count."""
     from ..ops.linear import (
         _nvfp4_layout_decision,
         fp8_device_layout,
@@ -175,6 +182,7 @@ class ContinuousBatcher:
         self.queue: Deque[_Request] = deque()
         self.finished: Dict[int, List[int]] = {}
         self._rid = itertools.count()
+        self.steps = 0  # decode steps run
 
     # -- submission ----------------------------------------------------------
     def submit(self, prompt_ids: Sequence[int], max_new_tokens: int = 64) -> int:
@@ -242,6 +250,7 @@ class ContinuousBatcher:
             return
         self.tokens, self.caches = _decode_step(self.params, self.spec, self.caches,
                                                 self.tokens)
+        self.steps += 1
         host = self.tokens.cpu().numpy()
         for slot, req in enumerate(self.slots):
             if req is not None:

@@ -29,6 +29,7 @@ the two agree bit for bit through a whole solve.
 """
 
 import math
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -247,7 +248,9 @@ def test_w8_kernel_reads_out_every_weight_exactly(gen, g, k, m, sdt):
 #: 2048-slot cache whose lengths leave some ranks of the split empty and some
 #: full (None: random lengths, the first 0)
 DECODE_CASES = [(8, 8, 4, 512, None), (3, 2, 8, 64, None), (8, 4, 8, 512, None),
-                (2, 8, 1, 64, None), (8, 8, 4, 2048, (0, 1, 15, 16, 17, 300, 2047, 2048 + 5))]
+                (2, 8, 1, 64, None), (8, 8, 4, 2048, (0, 1, 15, 16, 17, 300, 2047, 2048 + 5)),
+                # Qwen3-30B-A3B's attention at tp 2 (a rank's 16 heads on 2 KV heads)
+                (8, 2, 8, 512, None)]
 
 
 def _decode_case(gen, B, KV, rep, S, lengths=None):
@@ -857,7 +860,9 @@ def test_moe_slot_gu_ffn_takes_an_offset_view(gen):
 FP8_SHAPES = [(8, 2048, 3072), (8, 2048, 2048), (8, 2048, 16384), (8, 8192, 2048),
               (128, 2048, 16384), (3, 384, 256), (130, 256, 384), (16, 1024, 256),
               (32, 768, 384), (64, 512, 384), (65, 2048, 128), (512, 2048, 3072),
-              (8, 128, 512), (9, 384, 256), (8, 512, 4096)]
+              (8, 128, 512), (9, 384, 256), (8, 512, 4096),
+              # path E's layer at tp 2: a rank's q, o_proj (row) and down_proj (row)
+              (8, 2048, 1536), (8, 1024, 2048), (8, 4096, 2048)]
 
 
 @pytest.mark.parametrize("m,k,n", FP8_SHAPES)
@@ -924,6 +929,8 @@ MLA_CASES = [
     pytest.param(2, 128, 512, 128, 512, None, id="2-128-512-128-512"),
     pytest.param(2, 16, 1024, 256, 8192, None, id="2-16-1024-256-8192"),
     pytest.param(8, 16, 512, 128, 512, (0, 15, 16, 31, 32, 127, 128, 511), id="mixed-fills"),
+    # path E's attention at tp 2: a rank's 8 heads
+    pytest.param(8, 8, 512, 128, 512, None, id="tp2-8-8-512-128-512"),
 ]
 
 
@@ -1628,3 +1635,45 @@ def test_flash_attention_refuses_an_input_that_requires_grad_on_the_card(gen):
     with torch.no_grad():
         flash_attention(q, k, v, 1 / math.sqrt(128))
     assert flash_attention.launches == before + 1
+
+
+# ---------------------------------------------------------------------------
+# the multi-device slice: the kernels at the shard shapes, the gloo transport
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m,k", [(8, 4864), (32, 4864), (8, 2432), (32, 2432)])
+def test_w4_kernel_takes_a_tensor_parallel_down_proj(gen, m, k):
+    """Qwen3-4B's down_proj on a rank: local K 4864 at tp 2, 2432 at tp 4
+    (8g does not divide K/2, the JAX kernel's tiling; the CUDA entry's 128-row
+    K stages take it), decode and a row prefill."""
+    lin = _w4(gen, k, 2560, 32)
+    assert K.supports(lin)
+    x = torch.randn((m, k), device="cuda", generator=gen).bfloat16()
+    before = K.w4_matmul.launches
+    got = K.w4_matmul(x, lin)
+    assert K.w4_matmul.launches == before + 1
+    _close(got, K.w4_matmul_plain(x, lin.weight, lin.scale, 32), 1e-2)
+
+
+@pytest.mark.parametrize("routing", ["router", "all_distinct"])
+def test_moe_slot_gu_ffn_at_half_the_experts(gen, routing):
+    """K7 on a rank of Qwen3-30B-A3B under tp 2: 64 of the 128 experts."""
+    _gu_against_plain(*_w8pc_case(gen, 64, 2048, 768, 64, routing))
+
+
+@pytest.mark.parametrize("case", ["all_reduce", "all_gather", "ring_hop"])
+def test_gloo_collectives_on_cuda_tensors_in_two_ranks_on_one_card(gen, case, tmp_path):
+    """Two ranks on device 0 over gloo (NCCL refuses two ranks on one card):
+    the f32 all-reduce of bf16 partials, the all-gather of a head's columns
+    and the ring's hop (staged through pinned host memory), on CUDA tensors,
+    against their values computed here."""
+    import sys
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from _torch_dist_workers import run_world
+
+    outs = run_world("cuda_collectives", 2, {"case": case, "mesh": {"tp": 2},
+                                             "device": "cuda:0"}, tmp_path,
+                     extra_env={"QTPU_DIST_BACKEND": "gloo"})
+    for o in outs:
+        assert o["ok"], o

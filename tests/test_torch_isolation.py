@@ -66,6 +66,10 @@ def test_no_module_imports_jax_or_the_jax_package():
     assert out.returncode == 0, out.stderr
     count, not_built, bad = out.stdout.split(maxsplit=2)
     assert int(count) == len(_all_modules()) >= 15
+    # the multi-device slice's modules are among those imported
+    assert {f"quantizers_tpu_torch.{m}" for m in (
+        "parallel", "parallel.distributed", "parallel.mesh", "parallel.ring",
+        "parallel.collectives", "utils", "utils.jitcache")} <= set(_all_modules())
     assert not_built == "True"
     assert bad.strip() == "[]"
 
@@ -144,12 +148,17 @@ def test_checkpoint_entry_points_run_on_an_explicit_cpu(name, tiny_dir):
     (lambda d: make_tiny_model.main([str(d / "fit"), "--fit-corpus", str(d / "config.json"),
                                      "--fit-steps", "5", "--fit-seq", "32", "--device", "cpu"]),
      None),
+    # ported in slice 8: one process serves --mesh tp=1; a mesh of more ranks
+    # than the run has raises
     (lambda d: serve.main([str(d), "--prompt", "hi", "--mesh", "dp=1,tp=4", "--device", "cpu"]),
      "slice 8"),
 ], ids=["make_tiny_model --mla", "make_tiny_model --fit-corpus", "serve --mesh"])
-def test_cli_options_of_later_slices_raise(argv, slice_, tiny_dir, request):
-    if slice_ is not None:
-        with pytest.raises(NotImplementedError, match=slice_):
+def test_cli_options_of_later_slices_raise(argv, slice_, tiny_dir, request, capsys):
+    if slice_ == "slice 8":
+        assert serve.main([str(tiny_dir), "--prompt", "hi", "--mesh", "tp=1", "--device", "cpu",
+                           "--max-new-tokens", "3"]) == 0
+        assert capsys.readouterr().out.startswith("0\t")
+        with pytest.raises(ValueError, match="mesh needs 4 ranks, have 1"):
             argv(tiny_dir)
         return
     from quantizers_tpu.models.loader import load_hf_model as jax_load_hf_model
